@@ -11,12 +11,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 2. Build: compiles the CUDA kernels (csrc/*.cu, sm_90a) and the native line
    engine and host ops from the checkout's sources, all at once; prints the
    build seconds and each kernel's registers / shared memory (ptxas).
-3. Kernels vs plain at the main path's shapes: the NMS kernel at
+3. Kernels vs plain at the main paths' shapes: the NMS kernel at
    (8,192,192) with plateau ties and an ownership mask; the attention
-   kernel at B=4, T=400, H=12, hd=64 in f32 and bf16, with tail key masks
-   and one fully masked window. Prints max-abs-error against the stated
-   tolerance and times kernel, plain version and the PyTorch library call.
-4. Main path: OCRPipeline with the xl detector (bf16) and the full
+   forward kernel at the decode shape B=4, T=400, H=12, hd=64 in f32 and
+   bf16, with tail key masks and one fully masked window, and at the
+   training shape B=32 in f32; the attention backward kernel at the
+   training shape against ``attention_bwd_plain``. Prints max-abs-error
+   against the stated tolerance and times kernel, plain version and the
+   PyTorch library call (``scaled_dot_product_attention``, forward or its
+   backward). The attention bounds count the unmasked keys only.
+4. Serving path: OCRPipeline with the xl detector (bf16) and the full
    768-d 12-head 10+10-block 400-token Transformer, random weights from
    torch.Generator(0) drawn like flax's defaults, on a synthetic 2048x1448
    page (12 tiles). A detections hook swaps in a realistic synthetic box
@@ -30,10 +34,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    spread per route), peak device memory, each stage's time, the device's
    idle share over one page (kernel time from the profiler over the median
    unprofiled page wall time), and the decode stage timed in turns.
-5. Reference check on a small input: the tiny detector and a tiny
+5. Training path: train3's full-width state (the 768-d, 12-head,
+   10+10-block Transformer at 400/400 tokens, f32, dropout 0, batch 32,
+   schedule-free RAdam at lr 2.5e-3, ``attn_impl="auto"``, so the attention
+   kernels at all 30 sites) with random weights from torch.Generator(0), on
+   batches pre-generated from the port's TransformerDataset over a
+   synthetic feature bank. 2 warm-up steps, then 6 timed steps: ms/step,
+   sequences/s, tokens/s, the loss per step (finite, and the params must
+   move), 30 forward and 30 backward attention launches per step, peak
+   device memory; 2 profiled steps for the device busy time and idle share.
+   The step's work (matmul and unmasked attention flops) and its bound.
+   Reference check: the loss and gradients of one step through the
+   kernels against the einsum route from the same weights and batch
+   (rtol/atol 1e-3, the JAX package's own tolerance for this check, and
+   the norm of each tensor's difference within 1e-3 of its norm; the
+   gradient norms are printed beside).
+6. Reference check on a small input: the tiny detector and a tiny
    Transformer on the GPU against the same weights on the CPU.
 
-The second-to-last line is the kernels JSON, the last line
+The second-to-last line is the kernels JSON (one row per kernel and shape,
+with the launches of the path it serves), the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -49,6 +69,7 @@ PEAK_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12            # H100 SXM f32, non-tensor-core
 PEAK_BF16_FLOPS = 989e12          # H100 SXM bf16 tensor core, dense
 PAGE_W, PAGE_H, CHAR = 2048, 1448, 28
+TRAIN_WARMUP, TRAIN_STEPS, TRAIN_PROFILED = 2, 6, 2
 
 
 def log(*args):
@@ -130,6 +151,14 @@ def device_ms(fn, iters: int, match=None) -> float:
     return total / 1e3 / iters
 
 
+def unmasked_keys(mask) -> int:
+    """Keys the attention function needs, summed over the batch: those an
+    additive (B,1,1,T) key mask leaves at 0. A masked key adds exact zeros
+    to the output and takes exact-zero gradients, so the bounds count the
+    work of these keys only."""
+    return int((mask == 0).sum())
+
+
 def phase_environment():
     import torch
     if not torch.cuda.is_available():
@@ -173,7 +202,9 @@ def phase_build():
                 log(f"ptxas {src}: {fn}: {line.split(':', 1)[1].strip()}")
     log("  (attention: dynamic shared memory per block = "
         "4*(64*(HDP+1)*2 + 64*HDP + 64*65 + 64) bytes with HDP = hd rounded "
-        "up to a multiple of 16, 66560 at hd=64)")
+        "up to a multiple of 16, 66560 at hd=64; attention_bwd: "
+        "4*(2*64*(HDP+1) + 2*BC*(HDP+1) + 2*64*(BC+1) + 2*64 + BC) bytes "
+        "with BC = 64 up to HDP 128 and 32 above, 100608 at hd=64)")
     kernels.lib()
 
 
@@ -220,7 +251,7 @@ def phase_kernels():
         "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None,
         "wall_ms": event_ms(lambda: nms.nms_sigmoid_masked(xt, mt), 200),
-        "shape": [b, h, w],
+        "shape": [b, h, w], "path": "serving",
     }
 
     # --- attention at the decode shape -------------------------------------
@@ -254,7 +285,7 @@ def phase_kernels():
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qh, kh, vh, attn_mask=am)
         itemsize = 4 if dtype == torch.float32 else 2
-        flops = 4 * B * H * T * T * hd
+        flops = 4 * H * T * hd * unmasked_keys(mask)
         nbytes = 4 * B * T * H * hd * itemsize + B * T * 4
         peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
         t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
@@ -272,13 +303,109 @@ def phase_kernels():
             "library_ms": device_ms(library, 50),
             "wall_ms": event_ms(
                 lambda: attention.fused_attention(q, k, v, mask), 50),
-            "shape": [B, T, H, hd], "dtype": name,
+            "shape": [B, T, H, hd], "dtype": name, "path": "serving",
+            "unmasked_keys": unmasked_keys(mask),
         }
+    rows.update(training_kernel_rows(rng))
     torch.cuda.synchronize()
     for key, r in rows.items():
         log(f"{key}: kernel {r['ms']:.4f} ms (wall {r['wall_ms']:.4f}), "
             f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return rows
+
+
+def training_kernel_rows(rng) -> dict:
+    """The attention forward and backward kernels at the training shape
+    (32, 400, 12, 64) f32 with tail key masks, against their plain
+    versions and the library call."""
+    import torch
+    import torch.nn.functional as F
+
+    from findtextcenternet_tpu_torch.models.transformer import make_key_mask
+    from findtextcenternet_tpu_torch.ops import attention
+
+    dev = torch.device("cuda")
+    B, T, H, hd = 32, 400, 12, 64
+    enc = torch.ones((B, T, 2))
+    for i, n in enumerate(rng.integers(1, T + 1, B)):
+        enc[i, n:] = 0.0
+    mask = make_key_mask(enc).to(dev)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(
+        (B, T, H, hd)).astype(np.float32)).to(dev) for _ in range(4))
+    out, lse = attention.attention_fwd(q, k, v, mask, with_lse=True)
+    want = attention.attention_plain(q, k, v, mask)
+    fwd_err = float((out - want).abs().max())
+    got = attention.attention_bwd(q, k, v, mask, out, lse, g)
+    ref = attention.attention_bwd_plain(q, k, v, mask, g)
+    torch.cuda.synchronize()
+    bwd_err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    bwd_ok = all(bool(((a - b).abs() <= 1e-4 + 1e-4 * b.abs()).all())
+                 for a, b in zip(got, ref))
+    log(f"attention_fwd f32 (32,400,12,64): max_abs_err {fwd_err:.3g} "
+        f"(tolerance 1e-4); attention_bwd f32 (32,400,12,64) dq/dk/dv: "
+        f"max_abs_err {bwd_err:.3g} (tolerance atol 1e-4 + rtol 1e-4)")
+    if not (fwd_err <= 1e-4 and bwd_ok):
+        raise AssertionError(f"attention kernels disagree at the training "
+                             f"shape: fwd {fwd_err}, bwd {bwd_err}")
+    del want, ref
+
+    # library yardsticks: SDPA over (B,H,T,hd) with the same additive mask,
+    # forward, and its backward alone (autograd.grad on a kept graph)
+    qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    gh = g.transpose(1, 2).contiguous()
+    with torch.no_grad():
+        lib_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qh, kh, vh, attn_mask=mask)
+        lib_fwd_ms = device_ms(lib_fwd, 20)
+    lib_out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+    lib_bwd_ms = device_ms(lambda: torch.autograd.grad(
+        lib_out, (qh, kh, vh), gh, retain_graph=True), 10)
+    del lib_out, qh, kh, vh, gh
+
+    keys = unmasked_keys(mask)
+    base = dict(route="cuda", shape=[B, T, H, hd], dtype="float32",
+                path="training", unmasked_keys=keys)
+    log(f"training-shape inputs: {keys} of {B * T} keys unmasked; the "
+        f"bounds count 4 (forward) and 10 (backward) flops x H x T x hd "
+        f"for each")
+    flops = H * T * hd * keys
+    nbytes = 4 * B * T * H * hd * 4 + B * T * 4
+    rows = {}
+    t_ops, t_bytes = 4 * flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    rows["attention_train_fwd"] = dict(
+        base, name="attention_fwd",
+        source="findtextcenternet_tpu_torch/csrc/attention.cu",
+        replaces="findtextcenternet_tpu/ops/attention.py:59",
+        max_abs_err=fwd_err,
+        ms=device_ms(lambda: attention.attention_fwd(
+            q, k, v, mask, with_lse=True), 20, "attention_fwd_kernel"),
+        plain_ms=device_ms(lambda: attention.attention_plain(q, k, v, mask),
+                           10),
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=lib_fwd_ms,
+        wall_ms=event_ms(lambda: attention.attention_fwd(
+            q, k, v, mask, with_lse=True), 20))
+    # q, k, v, out, dOut in; dq, dk, dv out
+    nbytes = 8 * B * T * H * hd * 4 + 2 * B * H * T * 4 + B * T * 4
+    t_ops, t_bytes = 10 * flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    bwd = lambda: attention.attention_bwd(  # noqa: E731
+        q, k, v, mask, out, lse, g)
+    rows["attention_train_bwd"] = dict(
+        base, name="attention_bwd",
+        source="findtextcenternet_tpu_torch/csrc/attention_bwd.cu",
+        replaces="findtextcenternet_tpu/ops/attention.py:124",
+        max_abs_err=bwd_err, ms=device_ms(bwd, 10, "attention_bwd"),
+        kernel_ms={name: device_ms(bwd, 10, name) for name in (
+            "attention_bwd_dot_kernel", "attention_bwd_dkdv_kernel",
+            "attention_bwd_dq_kernel")},
+        plain_ms=device_ms(lambda: attention.attention_bwd_plain(
+            q, k, v, mask, g), 5),
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=lib_bwd_ms, wall_ms=event_ms(bwd, 10))
     return rows
 
 
@@ -458,6 +585,226 @@ def phase_main_path():
     return results
 
 
+def _kernel_share(prof, steps: int) -> dict:
+    """Device ms per step by kernel family, from a profile of ``steps``
+    train steps."""
+    fams = {"attention_fwd": ("attention_fwd",),
+            "attention_bwd": ("attention_bwd",),
+            "matmul": ("gemm", "Gemm", "sm90_", "cutlass", "ampere_",
+                       "splitK")}
+    out = {k: 0.0 for k in list(fams) + ["other"]}
+    for ev in prof.key_averages():
+        t = ev.self_device_time_total / 1e3 / steps
+        if t <= 0:
+            continue
+        fam = next((f for f, keys in fams.items()
+                    if any(key in ev.key for key in keys)), "other")
+        out[fam] += t
+    return out
+
+
+def step_work(model, batches) -> dict:
+    """The f32 flops one train step needs, averaged over ``batches``: about
+    three times the forward's matmul flops (each Dense counted by a hook: 2 x
+    rows x in x out), and the attention's 4 (forward) + 10 (backward)
+    flops per unmasked query-key pair and head column at the 30 sites
+    (encoder self and decoder cross attend to the encoder's unmasked keys,
+    decoder self to every decoder position)."""
+    import torch
+
+    from findtextcenternet_tpu_torch.models.transformer import (
+        Dense, make_key_mask)
+
+    counted = []
+
+    def hook(mod, args, out):
+        x = args[0]
+        counted.append(2 * (x.numel() // mod.in_features)
+                       * mod.in_features * mod.out_features)
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, Dense)]
+    try:
+        with torch.no_grad():
+            model(batches[0]["encoder_input"], batches[0]["decoder_input"])
+    finally:
+        for h in hooks:
+            h.remove()
+    d = model.dims
+    b, s = batches[0]["encoder_input"].shape[:2]
+    t = batches[0]["decoder_input"].shape[1]
+    enc_keys = float(np.mean([unmasked_keys(make_key_mask(x["encoder_input"]))
+                              for x in batches]))
+    pairs = (d.enc_block_num * s * enc_keys + d.dec_block_num * t * enc_keys
+             + d.dec_block_num * t * t * b)
+    out = dict(matmul_flops=3 * sum(counted),
+               attention_flops=14 * d.embed_dim * pairs,
+               encoder_keys_unmasked_share=enc_keys / (b * s))
+    out["bound_ms"] = (out["matmul_flops"] + out["attention_flops"]) \
+        / PEAK_F32_FLOPS * 1e3
+    return out
+
+
+def phase_training():
+    """train3's full-width step on the card, through the attention kernels;
+    returns the training launch counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from findtextcenternet_tpu_torch.config import Config
+    from findtextcenternet_tpu_torch.data.transformer_data import (
+        FeatureBank, TransformerDataset)
+    from findtextcenternet_tpu_torch.ops import attention
+    from findtextcenternet_tpu_torch.train.steps import (
+        batch_to_device, loss_and_grads, transformer_train_step)
+    from findtextcenternet_tpu_torch.train.train3 import (
+        build_transformer_state)
+
+    cfg = Config()
+    t, tc = cfg.transformer, cfg.train
+    t0 = time.perf_counter()
+    model, state = build_transformer_state(cfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in state.optimizer.params.values())
+    sites = {m.attn_impl for m in model.modules()
+             if hasattr(m, "attn_impl")}
+    log(f"training: {t.embed_dim}-d {t.head_num}-head {t.enc_block_num}+"
+        f"{t.dec_block_num}-block Transformer at {t.max_enc_seq_len}/"
+        f"{t.max_dec_seq_len} tokens, dropout {t.dropout}, batch "
+        f"{tc.batch_size}, accum {tc.accum_steps}, schedule-free RAdam lr "
+        f"{tc.learning_rate}, attn_impl {t.attn_impl!r} -> {sorted(sites)}; "
+        f"{n_params} trained parameters; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if sites != {"fused"}:
+        raise AssertionError(f"attn_impl auto resolved to {sites} on the card")
+
+    t0 = time.perf_counter()
+    bank = FeatureBank.synthetic(
+        list(range(0x3041, 0x3097)) + list(range(0x4E00, 0x4F00)), seed=0)
+    ds = TransformerDataset(bank, noise_ratio=1.0, seed=0,
+                            enc_len=t.max_enc_seq_len,
+                            dec_len=t.max_dec_seq_len)
+    it = ds.batches(tc.batch_size)
+    batches = [batch_to_device(next(it), "cuda")
+               for _ in range(TRAIN_WARMUP + TRAIN_STEPS + TRAIN_PROFILED)]
+    log(f"training: {len(batches)} batches pre-generated in "
+        f"{time.perf_counter() - t0:.1f} s (host numpy; not timed below)")
+
+    def step(batch):
+        return transformer_train_step(state, batch, dropout_seed=tc.seed,
+                                      accum_steps=tc.accum_steps)
+
+    for b in batches[:TRAIN_WARMUP]:
+        step(b)
+    torch.cuda.synchronize()
+    watch = {n: state.optimizer.params[n].detach().clone() for n in (
+        "encoder.embed.weight", "encoder.blocks.0.mha.q_proj.weight",
+        f"decoder.blocks.{t.dec_block_num - 1}.ff.w2.weight",
+        "decoder.out_layers.0.weight")}
+    torch.cuda.reset_peak_memory_stats()
+    attention.launches.reset()
+    attention.bwd_launches.reset()
+    losses = []
+    t0 = time.perf_counter()
+    for b in batches[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_STEPS]:
+        _, m = step(b)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"attention_fwd": attention.launches.count,
+                "attention_bwd": attention.bwd_launches.count}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    moved = {n: float((state.optimizer.params[n].detach() - w).abs().max())
+             for n, w in watch.items()}
+    ms = wall / TRAIN_STEPS * 1e3
+    tokens = tc.batch_size * (t.max_enc_seq_len + t.max_dec_seq_len)
+    res = dict(steps=TRAIN_STEPS, ms_per_step=ms,
+               sequences_per_s=tc.batch_size / (ms / 1e3),
+               tokens_per_s=tokens / (ms / 1e3),
+               max_memory_allocated=peak, loss=losses,
+               launches=launches,
+               launches_per_step={k: v / TRAIN_STEPS
+                                  for k, v in launches.items()},
+               param_max_abs_change=moved)
+    log(f"training: {json.dumps(res)}")
+    sites_per_step = t.enc_block_num + 2 * t.dec_block_num
+    for name, n in launches.items():
+        if n != sites_per_step * TRAIN_STEPS:
+            raise AssertionError(f"{name} launched {n} times in "
+                                 f"{TRAIN_STEPS} steps, expected "
+                                 f"{sites_per_step} per step")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"training loss not finite: {losses}")
+    if not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"training did not move the params: {moved}")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[TRAIN_WARMUP + TRAIN_STEPS:]:
+            step(b)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3 / TRAIN_PROFILED
+    share = _kernel_share(prof, TRAIN_PROFILED)
+    busy = sum(share.values())
+    res.update(device_busy_ms_per_step=busy, device_idle_share=1 - busy / ms,
+               profiled_ms_per_step=prof_wall, device_ms_by_family=share)
+    log(f"training profile (per step, {TRAIN_PROFILED} steps): device busy "
+        f"{busy:.2f} ms of {ms:.2f} ms unprofiled wall (idle share "
+        f"{1 - busy / ms:.3f}); profiled wall {prof_wall:.2f} ms; by "
+        f"family {json.dumps(share)}")
+    work = step_work(model, batches[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_STEPS])
+    log(f"training step work (timed batches): {json.dumps(work)}; "
+        f"ms/step over the bound {ms / work['bound_ms']:.3f}; matmul "
+        f"TFLOP/s {work['matmul_flops'] / share['matmul'] / 1e9:.2f}")
+
+    # reference check: one step's loss and gradients through the kernels
+    # against the einsum route, from the same weights and batch
+    model.train()
+    grads, metrics = {}, {}
+    for impl in ("fused", "xla"):
+        model.set_attn_impl(impl)
+        f0 = attention.launches.count
+        g, m = loss_and_grads(state, batches[0])
+        torch.cuda.synchronize()
+        if (attention.launches.count > f0) != (impl == "fused"):
+            raise AssertionError(f"[{impl}] attention kernel launches "
+                                 f"{attention.launches.count - f0}")
+        grads[impl], metrics[impl] = g, float(m["loss"])
+        del g
+    model.set_attn_impl("fused")
+    # per tensor: the largest elementwise gap, and the norm of the
+    # difference over the norm of the gradient
+    worst, worst_name, worst_rel, rel_name, bad = 0.0, None, 0.0, None, []
+    norms = []
+    for n, a in grads["fused"].items():
+        b = grads["xla"][n]
+        d = (a - b).abs()
+        norm = float(torch.linalg.vector_norm(b))
+        dnorm = float(torch.linalg.vector_norm(a - b))
+        rel = dnorm / norm if norm > 0 else (0.0 if dnorm == 0 else np.inf)
+        norms.append(norm)
+        if not (bool((d <= 1e-3 + 1e-3 * b.abs()).all()) and rel <= 1e-3):
+            bad.append(n)
+        if float(d.max()) > worst:
+            worst, worst_name = float(d.max()), n
+        if rel > worst_rel:
+            worst_rel, rel_name = rel, n
+    log(f"training reference: loss fused {metrics['fused']:.6f} vs xla "
+        f"{metrics['xla']:.6f}; gradients of {len(grads['xla'])} tensors "
+        f"(norms min {min(norms):.3g}, median {np.median(norms):.3g}, max "
+        f"{max(norms):.3g}): max_abs_diff {worst:.3g} ({worst_name}), "
+        f"largest |diff|/|grad| {worst_rel:.3g} ({rel_name}); tolerance "
+        f"rtol/atol 1e-3 elementwise and 1e-3 of each tensor's norm; "
+        f"outside: {bad}")
+    if bad or not np.isclose(metrics["fused"], metrics["xla"], rtol=1e-3,
+                             atol=1e-3):
+        raise AssertionError("fused and xla training steps disagree")
+    del grads, model, state, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_reference():
     """Small input: GPU (kernels) against CPU (plain versions)."""
     import torch
@@ -509,12 +856,15 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     results = phase_main_path()
+    train_launches = phase_training()
     phase_reference()
     launches = results["fused"]["launches"]
     kernels_line = []
-    for key in ("nms", "attention_float32"):
+    for key, counts in (("nms", launches), ("attention_float32", launches),
+                        ("attention_train_fwd", train_launches),
+                        ("attention_train_bwd", train_launches)):
         r = dict(rows[key])
-        r["launches"] = launches[r["name"]]
+        r["launches"] = counts[r["name"]]
         kernels_line.append(r)
     extra = dict(rows["attention_bfloat16"])
     log(f"attention_fwd bf16 (not on the default f32 decode path): "

@@ -4,10 +4,12 @@ Frozen dataclasses that serialize to/from plain dicts (JSON), field for
 field the same as ``findtextcenternet_tpu.config`` so one JSON config
 drives both packages. Two differences:
 
-* ``TransformerConfig.attn_impl`` and ``InferenceConfig.decode_attention``
-  accept only ``"xla"`` (the einsum composition) or ``"fused"`` (the
-  hand-written attention kernel) and raise on anything else; ``attn_impl``
-  defaults to ``"xla"``.
+* ``TransformerConfig.attn_impl`` accepts ``"xla"`` (the einsum
+  composition), ``"fused"`` (the hand-written attention kernels) or
+  ``"auto"`` (the default, as in JAX: :func:`resolve_attn_impl` makes it
+  ``"fused"`` on a CUDA device and ``"xla"`` on the CPU);
+  ``InferenceConfig.decode_attention`` accepts only ``"xla"`` or
+  ``"fused"``. Both raise on anything else.
 * ``InferenceConfig.device_features`` and ``fused_page_merge`` default to
   ``False``: the port runs the host-merge, host-feature path, and its
   pipeline raises ``NotImplementedError`` if either is set.
@@ -24,10 +26,20 @@ from . import const
 ATTENTION_IMPLS = ("xla", "fused")
 
 
-def check_attention_impl(name: str, value: str) -> None:
-    if value not in ATTENTION_IMPLS:
-        raise ValueError(
-            f"{name}={value!r}: expected one of {ATTENTION_IMPLS}")
+def check_attention_impl(name: str, value: str,
+                         allowed: Tuple[str, ...] = ATTENTION_IMPLS) -> None:
+    if value not in allowed:
+        raise ValueError(f"{name}={value!r}: expected one of {allowed}")
+
+
+def resolve_attn_impl(attn_impl: str, device) -> str:
+    """``"auto"`` -> ``"fused"`` on a CUDA device, ``"xla"`` elsewhere (the
+    JAX package's rule, with the card in the TPU's place); other values
+    are returned as they are."""
+    check_attention_impl("attn_impl", attn_impl, ATTENTION_IMPLS + ("auto",))
+    if attn_impl != "auto":
+        return attn_impl
+    return "fused" if str(device).startswith("cuda") else "xla"
 
 
 @dataclass(frozen=True)
@@ -62,11 +74,13 @@ class TransformerConfig:
     max_enc_seq_len: int = const.MAX_ENCODER_LEN
     max_dec_seq_len: int = const.MAX_DECODER_LEN
     dropout: float = 0.0
-    # "xla": einsum composition; "fused": the attention kernel
-    attn_impl: str = "xla"
+    # "xla": einsum composition; "fused": the attention kernels (training
+    # only while dropout == 0.0 and in f32); "auto": fused on the card
+    attn_impl: str = "auto"
 
     def __post_init__(self):
-        check_attention_impl("attn_impl", self.attn_impl)
+        check_attention_impl("attn_impl", self.attn_impl,
+                             ATTENTION_IMPLS + ("auto",))
 
 
 @dataclass(frozen=True)

@@ -32,6 +32,11 @@
 // once per query tile. This first version multiplies with plain f32 FMA
 // loops (256 threads, each owning a 4x4 score patch and a 4x(HDP/16) output
 // patch); tensor cores (mma/wgmma) and TMA are later work.
+//
+// Training: when `lse` is not null the kernel also writes each row's
+// log-sum-exp, m + log(l) (-inf for a fully masked row), into `lse` laid out
+// (B, H, Tq); the backward kernel (attention_bwd.cu) rebuilds the softmax
+// from it. Serving passes null, and its output is the same either way.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -64,8 +69,8 @@ template <typename T, int HDP>
 __global__ void __launch_bounds__(kThreads)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ mask,
-                     T* __restrict__ out, int Tq, int Tk, int H, int hd,
-                     float scale) {
+                     T* __restrict__ out, float* __restrict__ lse, int Tq,
+                     int Tk, int H, int hd, float scale) {
   static_assert(HDP % 16 == 0 && HDP <= kMaxHD, "padded head width");
   constexpr int kOJ = HDP / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -192,13 +197,15 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = tx + 16 * j;
       if (d < hd) store_f(ob + (size_t)r * row_stride + d, acc[i][j] / l_run[i]);
     }
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * H + h) * Tq + r] = m_run[i] + logf(l_run[i]);
   }
 }
 
 template <typename T, int HDP>
 int launch(const void* q, const void* k, const void* v, const float* mask,
-           void* out, int B, int Tq, int Tk, int H, int hd, float scale,
-           cudaStream_t stream) {
+           void* out, float* lse, int B, int Tq, int Tk, int H, int hd,
+           float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HDP>();
   auto kernel = attention_fwd_kernel<T, HDP>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -207,38 +214,40 @@ int launch(const void* q, const void* k, const void* v, const float* mask,
   dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, static_cast<T*>(out), Tq, Tk, H, hd,
-      scale);
+      static_cast<const T*>(v), mask, static_cast<T*>(out), lse, Tq, Tk, H,
+      hd, scale);
   return (int)cudaGetLastError();
 }
 
 // the smallest padded width HDP >= hd of HDP = 16, 32, ..., kMaxHD
 template <typename T, int HDP = 16>
 int dispatch_hd(const void* q, const void* k, const void* v,
-                const float* mask, void* out, int B, int Tq, int Tk, int H,
-                int hd, float scale, cudaStream_t stream) {
+                const float* mask, void* out, float* lse, int B, int Tq,
+                int Tk, int H, int hd, float scale, cudaStream_t stream) {
   if (hd <= HDP)
-    return launch<T, HDP>(q, k, v, mask, out, B, Tq, Tk, H, hd, scale,
+    return launch<T, HDP>(q, k, v, mask, out, lse, B, Tq, Tk, H, hd, scale,
                           stream);
   if constexpr (HDP < kMaxHD)
-    return dispatch_hd<T, HDP + 16>(q, k, v, mask, out, B, Tq, Tk, H, hd,
-                                    scale, stream);
+    return dispatch_hd<T, HDP + 16>(q, k, v, mask, out, lse, B, Tq, Tk, H,
+                                    hd, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t code (0 = ok).
+// dtype: 0 = float32, 1 = bfloat16. `lse` may be null (serving). Returns a
+// cudaError_t code (0 = ok).
 extern "C" int ftcn_attention_fwd(const void* q, const void* k, const void* v,
-                                  const float* mask, void* out, int B, int Tq,
-                                  int Tk, int H, int hd, int dtype,
-                                  float scale, void* stream) {
+                                  const float* mask, void* out, float* lse,
+                                  int B, int Tq, int Tk, int H, int hd,
+                                  int dtype, float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (hd < 1 || hd > kMaxHD) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch_hd<float>(q, k, v, mask, out, B, Tq, Tk, H, hd, scale, s);
+    return dispatch_hd<float>(q, k, v, mask, out, lse, B, Tq, Tk, H, hd,
+                              scale, s);
   if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, mask, out, B, Tq, Tk, H, hd,
-                                      scale, s);
+    return dispatch_hd<__nv_bfloat16>(q, k, v, mask, out, lse, B, Tq, Tk, H,
+                                      hd, scale, s);
   return (int)cudaErrorInvalidValue;
 }

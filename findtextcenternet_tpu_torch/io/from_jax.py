@@ -15,6 +15,11 @@ by the same permutation); Dense ``(in,out)`` -> Linear ``(out,in)``;
 BatchNorm ``scale/bias/mean/var`` -> ``weight/bias/running_mean/
 running_var`` (+ ``num_batches_tracked`` = 0); LayerNorm ``scale/bias`` ->
 ``weight/bias``; Embed ``embedding`` -> ``weight``.
+
+The same key schedule carries any tree shaped like the Transformer's
+parameters: a gradient tree, or the per-parameter buffers of the JAX
+package's schedule-free RAdam state (:func:`schedule_free_state_from_optax`),
+whose elementwise updates commute with the transposes.
 """
 from __future__ import annotations
 
@@ -120,12 +125,13 @@ def detector_state_from_flax(variables: dict, model_size: str = "xl"
     return s.sd
 
 
-def _mha(s: _Sink, key: str, path, cross: bool):
+def _mha(s: _Sink, key: str, path, cross: bool, key_tables: bool):
     s.raw(f"{key}.pos_emb_q.encoding", path + ("pos_emb_q", "table"))
     # self-attention never reads its key table; the upstream modules carry
     # one all the same, a copy of the query table
-    s.raw(f"{key}.pos_emb_k.encoding",
-          path + ("pos_emb_k" if cross else "pos_emb_q", "table"))
+    if cross or key_tables:
+        s.raw(f"{key}.pos_emb_k.encoding",
+              path + ("pos_emb_k" if cross else "pos_emb_q", "table"))
     for p in ("q_proj", "k_proj", "v_proj", "out_proj"):
         s.linear(f"{key}.{p}", path + (p,), bias=False)
 
@@ -136,17 +142,25 @@ def _swiglu(s: _Sink, key: str, path):
 
 
 def transformer_state_from_flax(variables: dict,
-                                dims: TransformerDims = TransformerDims()
+                                dims: TransformerDims = TransformerDims(),
+                                key_tables: bool = True
                                 ) -> Dict[str, torch.Tensor]:
-    """State dict of the port's ``Transformer`` from the JAX one's."""
-    s = _Sink(variables["params"], {})
+    """State dict of the port's ``Transformer`` from the JAX one's.
+
+    ``variables`` is ``{"params": tree}`` or a bare tree shaped like the
+    parameters (a gradient, an optimizer moment). ``key_tables=False``
+    leaves out the self-attention key tables, which mirror the query
+    tables and take no gradient: the result is then keyed like the
+    optimizer's parameters (``train.state.trainable_parameters``).
+    """
+    s = _Sink(variables.get("params", variables), {})
     enc = ("encoder",)
     s.linear("encoder.embed", enc + ("embed",), bias=False)
     s.raw("encoder.pos_emb.encoding", enc + ("pos_emb", "table"))
     s.ln("encoder.norm", enc + ("norm",))
     for i in range(dims.enc_block_num):
         t, f = f"encoder.blocks.{i}", enc + (f"block{i}",)
-        _mha(s, f"{t}.mha", f + ("mha",), cross=False)
+        _mha(s, f"{t}.mha", f + ("mha",), cross=False, key_tables=key_tables)
         s.ln(f"{t}.norm1", f + ("norm1",))
         s.ln(f"{t}.norm2", f + ("norm2",))
         _swiglu(s, f"{t}.ff", f + ("ff",))
@@ -157,11 +171,33 @@ def transformer_state_from_flax(variables: dict,
     s.ln("decoder.norm", dec + ("norm",))
     for i in range(dims.dec_block_num):
         t, f = f"decoder.blocks.{i}", dec + (f"block{i}",)
-        _mha(s, f"{t}.self_attn", f + ("self_attn",), cross=False)
-        _mha(s, f"{t}.cross_attn", f + ("cross_attn",), cross=True)
+        _mha(s, f"{t}.self_attn", f + ("self_attn",), cross=False,
+             key_tables=key_tables)
+        _mha(s, f"{t}.cross_attn", f + ("cross_attn",), cross=True,
+             key_tables=key_tables)
         for n in ("norm1", "norm2", "norm3"):
             s.ln(f"{t}.{n}", f + (n,))
         _swiglu(s, f"{t}.ff", f + ("ff",))
     for k in range(len(MODULO_LIST)):
         s.linear(f"decoder.out_layers.{k}", dec + (f"out{k}",))
     return s.sd
+
+
+def schedule_free_state_from_optax(opt_state, dims: TransformerDims
+                                   = TransformerDims()) -> dict:
+    """The port's ``ScheduleFreeRAdam.state_dict()`` from the JAX package's
+    ``optax.contrib.schedule_free(optax.radam(lr), lr)`` state (with its
+    arrays as numpy): ``z`` and the RAdam ``mu``, ``nu`` and ``count`` by
+    parameter name, ``weight_sum``, ``max_lr`` and ``step_count``, so that a
+    JAX train state continues in the port. Read by attribute, so optax is
+    not imported."""
+    adam = opt_state.base_optimizer_state[0]
+
+    def tree(t):
+        return transformer_state_from_flax(t, dims, key_tables=False)
+
+    return {"z": tree(opt_state.z), "mu": tree(adam.mu), "nu": tree(adam.nu),
+            "count": int(np.asarray(adam.count)),
+            "step_count": int(np.asarray(opt_state.step_count)),
+            "weight_sum": float(np.asarray(opt_state.weight_sum)),
+            "max_lr": float(np.asarray(opt_state.max_lr))}

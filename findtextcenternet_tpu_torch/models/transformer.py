@@ -1,4 +1,4 @@
-"""Encoder-decoder text transformer with mask-predict decoding (inference).
+"""Encoder-decoder text transformer with mask-predict decoding.
 
 Counterpart of ``findtextcenternet_tpu/models/transformer.py``: trainable
 sinusoid-initialised positional tables inside every attention layer,
@@ -10,7 +10,17 @@ with a per-window ``done`` vector). Module names follow the upstream
 ``dtype`` is the matmul compute dtype; parameters stay f32, LayerNorms
 (eps 1e-6, flax's default) and residue logits run in f32 either way.
 ``attn_impl="fused"`` sends the attention sites the JAX package would send
-to its Pallas kernel to the CUDA kernel (:mod:`..ops.attention`).
+to its Pallas kernel to the CUDA kernels (:mod:`..ops.attention`).
+
+Training is the module's train mode (``.train()``): dropout at the JAX
+package's sites (:class:`Dropout`, masks from the generator that
+:meth:`Transformer.set_dropout_generator` sets), and the fused route only
+while dropout is 0 and the compute dtype f32, as in JAX. The
+self-attention key tables (``pos_emb_k`` of a module with no
+``key_max_seq_len``) are never read: they keep the state dict's upstream
+``model3.pt`` keys and take no gradient (``requires_grad=False``);
+``train.state.TrainState.eval_state_dict`` fills them with the query
+tables for export.
 """
 from __future__ import annotations
 
@@ -36,6 +46,29 @@ from ..const import (
 from ..ops import attention
 
 LN_EPS = 1e-6
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in train mode keep each element with
+    probability ``1 - p`` and scale it by ``1/(1 - p)``, else zero;
+    the identity in eval mode or at ``p == 0``. Masks come from
+    ``self.generator`` (on the activations' device; the global generator
+    when None), so they are not JAX's."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep_prob = 1.0 - self.p
+        if keep_prob == 0.0:
+            return torch.zeros_like(x)
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,14 +124,15 @@ def layer_norm(mod: nn.LayerNorm, x):
 
 
 class SwiGLU(nn.Module):
-    def __init__(self, dim: int, dtype=torch.float32):
+    def __init__(self, dim: int, dtype=torch.float32, dropout: float = 0.0):
         super().__init__()
         self.w1 = Dense(dim, dim * 2, dtype=dtype)
         self.wg = Dense(dim, dim * 2, dtype=dtype)
         self.w2 = Dense(dim * 2, dim, dtype=dtype)
+        self.drop = Dropout(dropout)
 
     def forward(self, x):
-        return self.w2(self.w1(x) * F.silu(self.wg(x)))
+        return self.w2(self.drop(self.w1(x) * F.silu(self.wg(x))))
 
 
 class MultiheadAttn(nn.Module):
@@ -106,18 +140,26 @@ class MultiheadAttn(nn.Module):
 
     Self-attention adds the *query* table to both the q and k inputs;
     cross-attention adds the key table to k. V always takes the raw input.
+    A module with no ``key_max_seq_len`` is a self-attention one: its key
+    table only mirrors the query table (``mirrors_key_table``).
     """
 
     def __init__(self, embed_dim: int, num_heads: int, max_seq_len: int,
                  key_max_seq_len: Optional[int] = None,
-                 dtype=torch.float32, attn_impl: str = "xla"):
+                 dtype=torch.float32, attn_impl: str = "xla",
+                 dropout: float = 0.0):
         super().__init__()
         check_attention_impl("attn_impl", attn_impl)
         self.embed_dim, self.num_heads = embed_dim, num_heads
         self.attn_impl = attn_impl
+        self.dropout = dropout
+        self.attn_drop = Dropout(dropout)
+        self.mirrors_key_table = key_max_seq_len is None
         self.pos_emb_q = PositionalEncoding(max_seq_len, embed_dim)
         self.pos_emb_k = PositionalEncoding(key_max_seq_len or max_seq_len,
                                             embed_dim)
+        if self.mirrors_key_table:
+            self.pos_emb_k.encoding.requires_grad_(False)
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             setattr(self, name, Dense(embed_dim, embed_dim, bias=False,
                                       dtype=dtype))
@@ -134,17 +176,21 @@ class MultiheadAttn(nn.Module):
         q = self._heads(self.q_proj(self.pos_emb_q(query)))
         b, tq = q.shape[:2]
         hd = self.embed_dim // self.num_heads
-        # the routing guard of the JAX package (transformer.py:141-155),
-        # inference only: the kernel takes key-only masks
+        # the routing guard of the JAX package (transformer.py:141-147):
+        # training takes the kernels only with no attention dropout and
+        # f32 compute, and the kernels take key-only masks
         if (self.attn_impl == "fused"
                 and attention.supported(tq, kh.shape[1], hd)
+                and (not self.training
+                     or (self.dropout == 0.0 and q.dtype == torch.float32))
                 and (key_mask is None
                      or (key_mask.dim() == 4 and key_mask.shape[1] == 1
                          and key_mask.shape[2] == 1))):
             out = attention.fused_attention(q.contiguous(), kh.contiguous(),
                                             vh.contiguous(), key_mask)
         else:
-            out = attention.attention_plain(q, kh, vh, key_mask)
+            out = attention.attention_plain(q, kh, vh, key_mask,
+                                            dropout=self.attn_drop)
         return self.out_proj(out.reshape(b, tq, self.embed_dim))
 
     def cross_kv(self, key):
@@ -163,16 +209,19 @@ class EncoderBlock(nn.Module):
     def __init__(self, d: TransformerDims, dtype, attn_impl):
         super().__init__()
         self.mha = MultiheadAttn(d.embed_dim, d.head_num, d.max_enc_seq_len,
-                                 dtype=dtype, attn_impl=attn_impl)
+                                 dtype=dtype, attn_impl=attn_impl,
+                                 dropout=d.dropout)
         self.norm1 = nn.LayerNorm(d.embed_dim, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(d.embed_dim, eps=LN_EPS)
-        self.ff = SwiGLU(d.embed_dim, dtype=dtype)
+        self.ff = SwiGLU(d.embed_dim, dtype=dtype, dropout=d.dropout)
+        self.drop = Dropout(d.dropout)
 
     def forward(self, x, key_mask=None):
         skip = x
-        x = layer_norm(self.norm1, self.mha(x, key_mask=key_mask) + skip)
+        x = layer_norm(self.norm1,
+                       self.drop(self.mha(x, key_mask=key_mask)) + skip)
         ffn_in = x
-        return layer_norm(self.norm2, self.ff(x) + ffn_in + skip)
+        return layer_norm(self.norm2, self.drop(self.ff(x)) + ffn_in + skip)
 
 
 class DecoderBlock(nn.Module):
@@ -180,25 +229,28 @@ class DecoderBlock(nn.Module):
         super().__init__()
         self.self_attn = MultiheadAttn(d.embed_dim, d.head_num,
                                        d.max_dec_seq_len, dtype=dtype,
-                                       attn_impl=attn_impl)
+                                       attn_impl=attn_impl,
+                                       dropout=d.dropout)
         self.cross_attn = MultiheadAttn(d.embed_dim, d.head_num,
                                         d.max_dec_seq_len,
                                         key_max_seq_len=d.max_enc_seq_len,
-                                        dtype=dtype, attn_impl=attn_impl)
+                                        dtype=dtype, attn_impl=attn_impl,
+                                        dropout=d.dropout)
         for name in ("norm1", "norm2", "norm3"):
             setattr(self, name, nn.LayerNorm(d.embed_dim, eps=LN_EPS))
-        self.ff = SwiGLU(d.embed_dim, dtype=dtype)
+        self.ff = SwiGLU(d.embed_dim, dtype=dtype, dropout=d.dropout)
+        self.drop = Dropout(d.dropout)
 
     def cross_kv(self, enc):
         return self.cross_attn.cross_kv(enc)
 
     def _body(self, x, cross_fn):
         skip = x
-        x = layer_norm(self.norm1, self.self_attn(x) + skip)
+        x = layer_norm(self.norm1, self.drop(self.self_attn(x)) + skip)
         cross_in = x
-        x = layer_norm(self.norm2, cross_fn(x) + cross_in)
+        x = layer_norm(self.norm2, self.drop(cross_fn(x)) + cross_in)
         ffn_in = x
-        return layer_norm(self.norm3, self.ff(x) + ffn_in + skip)
+        return layer_norm(self.norm3, self.drop(self.ff(x)) + ffn_in + skip)
 
     def forward(self, x, enc, key_mask=None):
         return self._body(
@@ -217,11 +269,12 @@ class Encoder(nn.Module):
                            dtype=dtype)
         self.pos_emb = PositionalEncoding(d.max_enc_seq_len, d.embed_dim)
         self.norm = nn.LayerNorm(d.embed_dim, eps=LN_EPS)
+        self.drop = Dropout(d.dropout)
         self.blocks = nn.ModuleList(
             EncoderBlock(d, dtype, attn_impl) for _ in range(d.enc_block_num))
 
     def forward(self, x, key_mask=None):
-        x = layer_norm(self.norm, self.pos_emb(self.embed(x)))
+        x = self.drop(layer_norm(self.norm, self.pos_emb(self.embed(x))))
         for blk in self.blocks:
             x = blk(x, key_mask=key_mask)
         return x
@@ -234,6 +287,7 @@ class Decoder(nn.Module):
                                    for m in MODULO_LIST)
         self.pos_emb = PositionalEncoding(d.max_dec_seq_len, d.embed_dim)
         self.norm = nn.LayerNorm(d.embed_dim, eps=LN_EPS)
+        self.drop = Dropout(d.dropout)
         self.blocks = nn.ModuleList(
             DecoderBlock(d, dtype, attn_impl) for _ in range(d.dec_block_num))
         self.out_layers = nn.ModuleList(Dense(d.embed_dim, m, dtype=dtype)
@@ -244,7 +298,7 @@ class Decoder(nn.Module):
         for emb, m in zip(self.embed, MODULO_LIST):
             e = emb(tokens % m)
             x = e if x is None else x + e
-        return layer_norm(self.norm, self.pos_emb(x))
+        return self.drop(layer_norm(self.norm, self.pos_emb(x)))
 
     def _out(self, x) -> List[torch.Tensor]:
         return [out(x).float() for out in self.out_layers]
@@ -288,6 +342,12 @@ class Transformer(nn.Module):
         for m in self.modules():
             if isinstance(m, MultiheadAttn):
                 m.attn_impl = attn_impl
+
+    def set_dropout_generator(self, gen: Optional[torch.Generator]) -> None:
+        """Draw every dropout mask from ``gen`` from now on."""
+        for m in self.modules():
+            if isinstance(m, Dropout):
+                m.generator = gen
 
     def forward(self, enc_input, dec_input):
         key_mask = make_key_mask(enc_input)
@@ -359,10 +419,22 @@ def mask_predict(model: Transformer, enc_input: torch.Tensor,
     Starts from an all-MSK decoder input and refines up to ``max_rounds``
     times, remasking low-confidence positions. Early stop is per window: a
     finished window's codes/probs freeze while the others refine. The
-    cross-attention K/V are computed once per call.
+    cross-attention K/V are computed once per call. Runs in eval mode (the
+    model's mode is restored after).
 
     Returns ``(codes[B, dec_len] int32, probs[B, dec_len] f32)``.
     """
+    was_training = model.training
+    model.eval()
+    try:
+        return _mask_predict(model, enc_input, max_rounds, topk,
+                             remask_threshold, early_stop_threshold, dec_len)
+    finally:
+        model.train(was_training)
+
+
+def _mask_predict(model, enc_input, max_rounds, topk, remask_threshold,
+                  early_stop_threshold, dec_len):
     dec_len = dec_len or model.dims.max_dec_seq_len
     key_mask = make_key_mask(enc_input)
     kv = model.cross_kv(model.encode(enc_input))

@@ -25,7 +25,7 @@ from .. import shlib
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build", "kernels")
-SOURCES = ("nms.cu", "attention.cu")
+SOURCES = ("nms.cu", "attention.cu", "attention_bwd.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -104,9 +104,11 @@ def lib() -> ctypes.CDLL:
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             so.ftcn_nms_sigmoid_masked.argtypes = [p, p, p, i, i, i, p]
             so.ftcn_nms_sigmoid_masked.restype = i
-            so.ftcn_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                              i, f, p]
+            so.ftcn_attention_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i,
+                                              i, i, f, p]
             so.ftcn_attention_fwd.restype = i
+            so.ftcn_attention_bwd.argtypes = [p] * 11 + [i] * 5 + [f, p]
+            so.ftcn_attention_bwd.restype = i
             _lib = so
     return _lib
 

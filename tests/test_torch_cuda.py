@@ -7,18 +7,23 @@ also runs on a machine without JAX:
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 
 Tolerances: the NMS kernel computes the same compares and one expf per
-pixel as the plain version (atol 1e-6). The attention kernel sums scores in
-another order (64-key tiles, online softmax): f32 within atol 1e-4, rtol
-1e-4; bf16 outputs round to 8 bits and the plain version also rounds the
-softmax weights to bf16, so atol 3e-2.
+pixel as the plain version (atol 1e-6). The attention kernels sum scores in
+another order (64-key tiles, online softmax; the backward rebuilds the
+softmax from the forward's log-sum-exp): f32 within atol 1e-4, rtol 1e-4;
+bf16 outputs round to 8 bits and the plain version also rounds the softmax
+weights to bf16, so atol 3e-2.
 """
 import numpy as np
 import pytest
 import torch
 
+from findtextcenternet_tpu_torch.models.init import init_flax_defaults_
 from findtextcenternet_tpu_torch.models.transformer import (
-    MultiheadAttn, make_key_mask)
+    MultiheadAttn, Transformer, TransformerDims, make_key_mask)
 from findtextcenternet_tpu_torch.ops import attention, nms, peaks
+from findtextcenternet_tpu_torch.train.state import create_train_state
+from findtextcenternet_tpu_torch.train.steps import (
+    batch_to_device, loss_and_grads, transformer_train_step)
 
 pytestmark = pytest.mark.gpu
 
@@ -151,3 +156,146 @@ def test_extract_peaks_on_card_matches_cpu(cuda):
                                       want[key].numpy())
     np.testing.assert_allclose(got["score"].cpu().numpy(),
                                want["score"].numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("hd", [8, 24, 64, 256])
+def test_attention_bwd_kernel_matches_plain(cuda, hd):
+    """Ragged lengths (Tq 72, Tk 100: partial tiles), tail key masks, and a
+    fully masked window (NaN on both sides); masked keys get exact-zero
+    gradients."""
+    q, k, v, mask = _attn_inputs(4, 72, 100, 3, hd, torch.float32, seed=hd,
+                                 lengths=[100, 37, 1, 0])
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(hd))
+    want = attention.attention_bwd_plain(q, k, v, mask, g)
+    qc, kc, vc, mc, gc = (t.to(cuda) for t in (q, k, v, mask, g))
+    out, lse = attention.attention_fwd(qc, kc, vc, mc, with_lse=True)
+    before = attention.bwd_launches.count
+    got = attention.attention_bwd(qc, kc, vc, mc, out, lse, gc)
+    torch.cuda.synchronize()
+    assert attention.bwd_launches.count == before + 1
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        a, w = a.cpu().numpy(), w.numpy()
+        assert np.isnan(a[3]).all() and np.isnan(w[3]).all(), name
+        np.testing.assert_allclose(a[:3], w[:3], atol=1e-4, rtol=1e-4,
+                                   err_msg=name)
+    dk, dv = got[1].cpu(), got[2].cpu()
+    assert (dk[1, 37:] == 0).all() and (dv[1, 37:] == 0).all()
+    assert (dk[2, 1:] == 0).all() and (dv[2, 1:] == 0).all()
+
+
+def test_fused_attention_autograd_on_card_launches_both_kernels(cuda):
+    q, k, v, mask = _attn_inputs(2, 40, 24, 2, 16, torch.float32, seed=5,
+                                 lengths=[24, 9])
+    w = torch.randn(q.shape, generator=torch.Generator().manual_seed(6))
+
+    def grads(fn, dev):
+        ts = [t.detach().clone().to(dev).requires_grad_()
+              for t in (q, k, v)]
+        out = fn(*ts, mask.to(dev))
+        assert out.grad_fn is not None
+        torch.sum(out * w.to(dev)).backward()
+        return [t.grad.cpu().numpy() for t in ts]
+
+    want = grads(attention.attention_plain, "cpu")
+    f0, b0 = attention.launches.count, attention.bwd_launches.count
+    got = grads(attention.fused_attention, cuda)
+    assert attention.launches.count == f0 + 1
+    assert attention.bwd_launches.count == b0 + 1
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_attention_bwd_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 8, 2, 64), device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    with pytest.raises(TypeError):
+        attention.fused_attention(q, q, q)
+    x = torch.zeros((1, 8, 2, 64), device=cuda)
+    out, lse = attention.attention_fwd(x, x, x, with_lse=True)
+    with pytest.raises(TypeError):
+        attention.attention_bwd(x.half(), x.half(), x.half(), None, out, lse,
+                                x)
+    with pytest.raises(ValueError):
+        attention.attention_bwd(x, x, x, None, out, None, x)
+
+
+@pytest.mark.parametrize("hd", [24, 64])
+def test_multihead_attn_fused_training_grads_equal_xla(cuda, hd):
+    """Train mode through the kernels gives the einsum route's gradients
+    for every projection and the input."""
+    heads = 2
+    attn = MultiheadAttn(heads * hd, heads, 16, attn_impl="fused").to(cuda)
+    attn.train()
+    gen = torch.Generator().manual_seed(hd)
+    x = torch.randn((2, 16, heads * hd), generator=gen).to(cuda)
+    w = torch.randn((2, 16, heads * hd), generator=gen).to(cuda)
+    enc = torch.ones((2, 16, 3))
+    enc[1, 9:] = 0.0
+    mask = make_key_mask(enc.to(cuda))
+    grads = {}
+    for impl in ("fused", "xla"):
+        attn.attn_impl = impl
+        attn.zero_grad()
+        xi = x.clone().requires_grad_()
+        before = attention.bwd_launches.count
+        torch.sum(attn(xi, key_mask=mask) * w).backward()
+        assert attention.bwd_launches.count == before + (impl == "fused")
+        grads[impl] = {n: p.grad.cpu().numpy()
+                       for n, p in attn.named_parameters()
+                       if p.grad is not None}
+        grads[impl]["input"] = xi.grad.cpu().numpy()
+    assert set(grads["fused"]) == set(grads["xla"])
+    assert {"q_proj.weight", "k_proj.weight", "v_proj.weight",
+            "input"} <= set(grads["fused"])
+    for n, g in grads["xla"].items():
+        np.testing.assert_allclose(grads["fused"][n], g, atol=1e-4,
+                                   rtol=1e-4, err_msg=n)
+
+
+def test_train_step_on_card_fused_equals_xla(cuda):
+    """Two train steps of a small Transformer on the card: the fused route
+    (attention kernels forward and backward at every site) against the
+    einsum route, from the same weights. The first batch's gradients agree
+    tensor by tensor within 1e-5 of the gradient's norm."""
+    dims = TransformerDims(enc_input_dim=20, embed_dim=64, head_num=4,
+                           enc_block_num=2, dec_block_num=2,
+                           max_enc_seq_len=24, max_dec_seq_len=24)
+    base = init_flax_defaults_(Transformer(dims),
+                               torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(2):
+        enc = rng.standard_normal((3, 24, 20)).astype(np.float32)
+        enc[1, 13:] = 0.0
+        true = rng.integers(4, 70000, (3, 24)).astype(np.int32)
+        inp = np.where(rng.uniform(size=true.shape) < 0.5, 3, true)
+        batches.append({"encoder_input": enc, "decoder_input": inp,
+                        "decoder_true": true})
+    results = {}
+    for impl in ("fused", "xla"):
+        model = Transformer(dims, attn_impl=impl)
+        model.load_state_dict(base.state_dict())
+        state = create_train_state(model.to(cuda), 2.5e-3)
+        grads, _ = loss_and_grads(state, batch_to_device(batches[0], cuda))
+        attention.launches.reset()
+        attention.bwd_launches.reset()
+        losses = []
+        for b in batches:
+            state, m = transformer_train_step(state, b)
+            losses.append(float(m["loss"]))
+        sites = dims.enc_block_num + 2 * dims.dec_block_num
+        want = 2 * sites if impl == "fused" else 0
+        assert attention.launches.count == want
+        assert attention.bwd_launches.count == want
+        results[impl] = (losses, {k: v.cpu().numpy()
+                                  for k, v in model.state_dict().items()},
+                         grads)
+    for k, g in results["xla"][2].items():
+        diff = float(torch.linalg.vector_norm(results["fused"][2][k] - g))
+        norm = float(torch.linalg.vector_norm(g))
+        assert norm > 0 and diff <= 1e-5 * norm, (k, diff, norm)
+    np.testing.assert_allclose(results["fused"][0], results["xla"][0],
+                               atol=1e-4, rtol=1e-4)
+    for k, v in results["xla"][1].items():
+        np.testing.assert_allclose(results["fused"][1][k], v, atol=1e-4,
+                                   rtol=1e-4, err_msg=k)
