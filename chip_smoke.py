@@ -14,12 +14,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 3. Kernels vs plain at the main paths' shapes: the NMS kernel at
    (8,192,192) with plateau ties and an ownership mask; the attention
    forward kernel at the decode shape B=4, T=400, H=12, hd=64 in f32 and
-   bf16, with tail key masks and one fully masked window, and at the
-   training shape B=32 in f32; the attention backward kernel at the
-   training shape against ``attention_bwd_plain``. Prints max-abs-error
-   against the stated tolerance and times kernel, plain version and the
-   PyTorch library call (``scaled_dot_product_attention``, forward or its
-   backward). The attention bounds count the unmasked keys only.
+   bf16, with tail key masks and one fully masked window, in f32 with no
+   mask (the decoder's self-attention, 80 of a page's 170 launches), and at
+   the training shape B=32 in f32; the attention backward kernel at the
+   training shape against ``attention_bwd_plain``, and two backward
+   launches bit for bit; at the training shape the forward and backward
+   kernels and the plain versions also against an f64 reference. Prints
+   max-abs-error against the stated tolerance and times kernel, plain
+   version and the PyTorch library call (``scaled_dot_product_attention``,
+   forward or its backward). The attention bounds count the unmasked keys
+   only, at the rate of the arithmetic the kernels perform (split tf32 on
+   the tensor cores, 165 TFLOP/s, for f32; bf16 989). A separate line per
+   attention row gives what its inputs imply and no run measures: the
+   unmasked keys, the 64-key tiles the mask lets the kernels skip, the f32
+   CUDA-core bound, and the time of the FMA-loop kernels they replaced
+   (``ms_before``, quoted from PERF.md).
 4. Serving path: OCRPipeline with the xl detector (bf16) and the full
    768-d 12-head 10+10-block 400-token Transformer, random weights from
    torch.Generator(0) drawn like flax's defaults, on a synthetic 2048x1448
@@ -33,7 +42,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    formed. Prints ms/page and tiles/s per window (and their median and
    spread per route), peak device memory, each stage's time, the device's
    idle share over one page (kernel time from the profiler over the median
-   unprofiled page wall time), and the decode stage timed in turns.
+   unprofiled page wall time), the attention kernel's time and launches in
+   that profiled page, and the decode stage timed in turns.
 5. Training path: train3's full-width state (the 768-d, 12-head,
    10+10-block Transformer at 400/400 tokens, f32, dropout 0, batch 32,
    schedule-free RAdam at lr 2.5e-3, ``attn_impl="auto"``, so the attention
@@ -68,6 +78,16 @@ import numpy as np
 PEAK_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12            # H100 SXM f32, non-tensor-core
 PEAK_BF16_FLOPS = 989e12          # H100 SXM bf16 tensor core, dense
+# f32 products on the tensor cores in the split form of the attention
+# kernels (csrc/attention_mma.cuh): three tf32 passes, 495 / 3 TFLOP/s
+PEAK_SPLIT_TF32_FLOPS = 495e12 / 3
+KEY_TILE = 64                     # keys a skipped tile holds at hd <= 64
+# the times of the FMA-loop attention kernels that the tensor-core kernels
+# replaced (PERF.md's kernel table; H100 80GB HBM3, 700.00 W), quoted on
+# each attention row's line of reckoned values as ms_before; not this
+# run's measurements
+MS_BEFORE = {"attention_float32": 0.119753, "attention_bfloat16": 0.118593,
+             "attention_train_fwd": 0.776599, "attention_train_bwd": 3.629922}
 PAGE_W, PAGE_H, CHAR = 2048, 1448, 28
 TRAIN_WARMUP, TRAIN_STEPS, TRAIN_PROFILED = 2, 6, 2
 
@@ -159,6 +179,62 @@ def unmasked_keys(mask) -> int:
     return int((mask == 0).sum())
 
 
+def key_tiles(mask) -> dict:
+    """The 64-key tiles of an additive (B,1,1,T) key mask, summed over the
+    batch, and those whose keys are all masked: the tiles the attention
+    kernels skip (the forward and the dQ pass step over them, a dK/dV block
+    over one writes zeros and returns)."""
+    import torch
+    dead = mask.reshape(mask.shape[0], -1) == float("-inf")
+    n = -(-dead.shape[1] // KEY_TILE)
+    dead = torch.cat([dead, dead.new_ones(
+        (dead.shape[0], n * KEY_TILE - dead.shape[1]))], dim=1)
+    return {"key_tiles": dead.shape[0] * n, "key_tiles_skipped": int(
+        dead.reshape(dead.shape[0], n, KEY_TILE).all(dim=-1).sum())}
+
+
+def attention_bounds(flops: float, nbytes: float, peak: float) -> dict:
+    """The least time for the attention work: the larger of the bytes time
+    and the flops time at the rate of the arithmetic the kernel performs
+    (``peak``)."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def reckoned(mask, flops: float, nbytes: float, before=None) -> dict:
+    """What an attention row's inputs imply, reckoned here and measured by
+    no run: the unmasked keys, the 64-key tiles the mask lets the kernels
+    skip, the f32 CUDA-core bound of the earlier kernels, and their time
+    quoted from PERF.md (``before``)."""
+    out = {"unmasked_keys": unmasked_keys(mask), **key_tiles(mask),
+           "bound_f32_simt_ms": max(flops / PEAK_F32_FLOPS,
+                                    nbytes / PEAK_BYTES_PER_S) * 1e3}
+    if before is not None:
+        out["ms_before"] = before
+    return out
+
+
+def reference_f64(q, k, v, mask, g):
+    """(out, dq, dk, dv) of the attention computed in f64."""
+    import torch
+    scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    qf, kf, vf, gf = (t.double() for t in (q, k, v, g))
+    a = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+                      + mask.double(), dim=-1)
+    da = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    ds = a * (da - torch.sum(da * a, dim=-1, keepdim=True))
+    return (torch.einsum("bhqk,bkhd->bqhd", a, vf),
+            torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale,
+            torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale,
+            torch.einsum("bhqk,bqhd->bkhd", a, gf))
+
+
+def gate_share(got, want, atol: float, rtol: float) -> float:
+    """The largest |got - want| / (atol + rtol |want|): 1.0 is the gate."""
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
 def phase_environment():
     import torch
     if not torch.cuda.is_available():
@@ -192,19 +268,44 @@ def phase_build():
         f"(kernels {kernels.build_info.get('seconds', 0.0):.1f} s, native "
         + ", ".join(f"{k} {v:.1f} s" for k, v in native.build_seconds.items())
         + ")")
+    # registers, spills and shared memory of each kernel: in full for the
+    # instantiations the main paths run (head width 64; NMS, row dot), as a
+    # range over the other head widths
+    others = {}
     for src, rep in (kernels.build_info.get("ptxas") or {}).items():
-        fn = None
+        fn = spill = None
         for line in rep.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 fn = m.group(1)
+            elif "spill" in line and fn:
+                spill = line.strip()
             elif "Used" in line and fn:
-                log(f"ptxas {src}: {fn}: {line.split(':', 1)[1].strip()}")
-    log("  (attention: dynamic shared memory per block = "
-        "4*(64*(HDP+1)*2 + 64*HDP + 64*65 + 64) bytes with HDP = hd rounded "
-        "up to a multiple of 16, 66560 at hd=64; attention_bwd: "
-        "4*(2*64*(HDP+1) + 2*BC*(HDP+1) + 2*64*(BC+1) + 2*64 + BC) bytes "
-        "with BC = 64 up to HDP 128 and 32 above, 100608 at hd=64)")
+                used = line.split(":", 1)[1].strip()
+                wm = re.search(r"Li(\d+)E", fn)
+                if wm is None or wm.group(1) == "64":
+                    log(f"ptxas {src}: {fn}: {used}; {spill}")
+                    continue
+                base = re.sub(r"Li\d+E", "LiHDPE", fn)
+                regs = int(re.search(r"Used (\d+) registers", used).group(1))
+                st = int(re.search(r"(\d+) bytes spill stores", spill)
+                         .group(1))
+                o = others.setdefault(base, [999, 0, 0, 0, 0])
+                o[0], o[1] = min(o[0], regs), max(o[1], regs)
+                o[2] += 1
+                o[3] += st > 0
+                o[4] = max(o[4], st)
+    for base, (lo, hi, n, n_spill, worst) in others.items():
+        log(f"ptxas {base}: {n} other head widths: {lo}-{hi} registers; "
+            f"{n_spill} spill (at most {worst} bytes of spill stores)")
+    # dynamic shared memory at hd = 64 (row stride 64 + 4 floats), by the
+    # formulas of attention.cu and attention_bwd.cu
+    fwd = 4 * (64 + 4 * 64) * 68 + 4 * 2 * 64
+    bwd = 4 * (2 * 64 * 68 + 4 * 64 * 68 + 2 * 64 + 4 * 64)
+    log(f"  (dynamic shared memory per block at hd=64: attention_fwd f32 "
+        f"{fwd} bytes (64 query rows + 2 stages of 64 K and V rows); "
+        f"attention_bwd dK/dV and dQ {bwd} bytes (2 x 64 owned rows + 2 "
+        f"stages of 2 x 64 streamed rows); 128 threads a block)")
     kernels.lib()
 
 
@@ -219,7 +320,7 @@ def phase_kernels():
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    rows = {}
+    rows, info = {}, {}
 
     # --- NMS at one full chunk: (8, 192, 192) ---------------------------
     b, h, w = 8, 192, 192
@@ -275,7 +376,9 @@ def phase_kernels():
         err = float((g[:3] - wv[:3]).abs().max())
         name = str(dtype).split(".")[-1]
         log(f"attention_fwd {name} (4,400,12,64): max_abs_err {err:.3g} "
-            f"(tolerance {tol}); fully masked window NaN on both sides")
+            f"(tolerance {tol}; {gate_share(g[:3], wv[:3], tol, 0.0):.3g} of "
+            f"it at the worst element); fully masked window NaN on both "
+            f"sides")
         if not err <= tol:
             raise AssertionError(f"attention kernel ({name}) disagrees: "
                                  f"{err}")
@@ -287,8 +390,8 @@ def phase_kernels():
         itemsize = 4 if dtype == torch.float32 else 2
         flops = 4 * H * T * hd * unmasked_keys(mask)
         nbytes = 4 * B * T * H * hd * itemsize + B * T * 4
-        peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
-        t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
+        peak = (PEAK_SPLIT_TF32_FLOPS if dtype == torch.float32
+                else PEAK_BF16_FLOPS)
         rows[f"attention_{name}"] = {
             "name": "attention_fwd", "route": "cuda",
             "source": "findtextcenternet_tpu_torch/csrc/attention.cu",
@@ -298,27 +401,80 @@ def phase_kernels():
                             50, "attention_fwd_kernel"),
             "plain_ms": device_ms(
                 lambda: attention.attention_plain(q, k, v, mask), 50),
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            **attention_bounds(flops, nbytes, peak),
             "library_ms": device_ms(library, 50),
             "wall_ms": event_ms(
                 lambda: attention.fused_attention(q, k, v, mask), 50),
             "shape": [B, T, H, hd], "dtype": name, "path": "serving",
-            "unmasked_keys": unmasked_keys(mask),
+            "keys": "lengths 400/311/57/0",
         }
-    rows.update(training_kernel_rows(rng))
+        info[f"attention_{name}"] = reckoned(
+            mask, flops, nbytes, MS_BEFORE[f"attention_{name}"])
+
+    # --- the decoder's self-attention: no mask, every key tile live ----
+    # (its own generator, so the training rows keep their inputs)
+    rng_self = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng_self.standard_normal(
+        (B, T, H, hd)).astype(np.float32)).to(dev) for _ in range(3))
+    got = attention.fused_attention(q, k, v)
+    want = attention.attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    log(f"attention_fwd float32 (4,400,12,64), no mask: max_abs_err "
+        f"{err:.3g} (tolerance 1e-4; {gate_share(got, want, 1e-4, 0.0):.3g} "
+        f"of it at the worst element)")
+    if not err <= 1e-4:
+        raise AssertionError(f"attention kernel (no mask) disagrees: {err}")
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    library = lambda: F.scaled_dot_product_attention(qh, kh, vh)  # noqa: E731
+    flops = 4 * H * T * hd * B * T
+    nbytes = 4 * B * T * H * hd * 4
+    rows["attention_float32_nomask"] = {
+        "name": "attention_fwd", "route": "cuda",
+        "source": "findtextcenternet_tpu_torch/csrc/attention.cu",
+        "replaces": "findtextcenternet_tpu/ops/attention.py:59",
+        "max_abs_err": err,
+        "ms": device_ms(lambda: attention.fused_attention(q, k, v), 50,
+                        "attention_fwd_kernel"),
+        "plain_ms": device_ms(lambda: attention.attention_plain(q, k, v), 50),
+        **attention_bounds(flops, nbytes, PEAK_SPLIT_TF32_FLOPS),
+        "library_ms": device_ms(library, 50),
+        "wall_ms": event_ms(lambda: attention.fused_attention(q, k, v), 50),
+        "shape": [B, T, H, hd], "dtype": "float32", "path": "serving",
+        "keys": "all (no mask)",
+    }
+    info["attention_float32_nomask"] = reckoned(
+        torch.zeros((B, 1, 1, T), device=dev), flops, nbytes)
+    # the kernel's time follows the key tiles it walks: the masked decode
+    # row's time over the unmasked row's, beside the share of live tiles
+    t = info["attention_float32"]
+    live = 1 - t["key_tiles_skipped"] / t["key_tiles"]
+    masked, full = rows["attention_float32"], rows["attention_float32_nomask"]
+    log(f"attention_fwd float32 decode shape, masked over unmasked time: "
+        f"{masked['ms'] / full['ms']:.3f} (kernel), "
+        f"{masked['library_ms'] / full['library_ms']:.3f} (library); live "
+        f"key tiles {live:.3f} of the unmasked row's")
+
+    train_rows, train_info = training_kernel_rows(rng)
+    rows.update(train_rows)
+    info.update(train_info)
     torch.cuda.synchronize()
     for key, r in rows.items():
         log(f"{key}: kernel {r['ms']:.4f} ms (wall {r['wall_ms']:.4f}), "
             f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{r['ms'] / r['bound_ms']:.2f}x it")
+    for key, i in info.items():
+        log(f"{key}, reckoned from its inputs (not measured): "
+            f"{json.dumps(i)}")
     return rows
 
 
-def training_kernel_rows(rng) -> dict:
+def training_kernel_rows(rng):
     """The attention forward and backward kernels at the training shape
     (32, 400, 12, 64) f32 with tail key masks, against their plain
-    versions and the library call."""
+    versions, an f64 reference and the library call; returns the rows and
+    what their inputs imply (:func:`reckoned`)."""
     import torch
     import torch.nn.functional as F
 
@@ -340,15 +496,36 @@ def training_kernel_rows(rng) -> dict:
     ref = attention.attention_bwd_plain(q, k, v, mask, g)
     torch.cuda.synchronize()
     bwd_err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
-    bwd_ok = all(bool(((a - b).abs() <= 1e-4 + 1e-4 * b.abs()).all())
-                 for a, b in zip(got, ref))
+    shares = [gate_share(a, b, 1e-4, 1e-4) for a, b in zip(got, ref)]
+    bwd_ok = max(shares) <= 1.0
     log(f"attention_fwd f32 (32,400,12,64): max_abs_err {fwd_err:.3g} "
         f"(tolerance 1e-4); attention_bwd f32 (32,400,12,64) dq/dk/dv: "
-        f"max_abs_err {bwd_err:.3g} (tolerance atol 1e-4 + rtol 1e-4)")
+        f"max_abs_err {bwd_err:.3g} (tolerance atol 1e-4 + rtol 1e-4; the "
+        f"worst element at {', '.join(f'{x:.3g}' for x in shares)} of it)")
+    again = attention.attention_bwd(q, k, v, mask, out, lse, g)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("two backward launches differ")
+    log("attention_bwd: two launches on the same inputs bit-identical")
     if not (fwd_err <= 1e-4 and bwd_ok):
         raise AssertionError(f"attention kernels disagree at the training "
                              f"shape: fwd {fwd_err}, bwd {bwd_err}")
-    del want, ref
+    # both against the f64 truth: the kernels within the same gate, the f32
+    # plain versions' own error beside theirs
+    truth = reference_f64(q, k, v, mask, g)
+    worst, parts = 0.0, []
+    for name, a, p, t in zip(("out", "dq", "dk", "dv"), (out,) + got,
+                             (want,) + ref, truth):
+        share = gate_share(a.double(), t, 1e-4, 1e-4)
+        worst = max(worst, share)
+        parts.append(f"{name} kernel {float((a.double() - t).abs().max()):.3g}"
+                     f" plain {float((p.double() - t).abs().max()):.3g} "
+                     f"({share:.3g} of the gate)")
+    log(f"attention f32 (32,400,12,64) against an f64 reference, max_abs_err "
+        f"(gate atol 1e-4 + rtol 1e-4 for the kernels): {'; '.join(parts)}")
+    if not worst <= 1.0:
+        raise AssertionError(f"attention kernels off the f64 reference: "
+                             f"{worst} of the gate")
+    del want, ref, truth
 
     # library yardsticks: SDPA over (B,H,T,hd) with the same additive mask,
     # forward, and its backward alone (autograd.grad on a kept graph)
@@ -366,14 +543,13 @@ def training_kernel_rows(rng) -> dict:
 
     keys = unmasked_keys(mask)
     base = dict(route="cuda", shape=[B, T, H, hd], dtype="float32",
-                path="training", unmasked_keys=keys)
+                path="training", keys="tail masks, lengths 1..400")
     log(f"training-shape inputs: {keys} of {B * T} keys unmasked; the "
         f"bounds count 4 (forward) and 10 (backward) flops x H x T x hd "
         f"for each")
     flops = H * T * hd * keys
     nbytes = 4 * B * T * H * hd * 4 + B * T * 4
-    rows = {}
-    t_ops, t_bytes = 4 * flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    rows, info = {}, {}
     rows["attention_train_fwd"] = dict(
         base, name="attention_fwd",
         source="findtextcenternet_tpu_torch/csrc/attention.cu",
@@ -383,14 +559,14 @@ def training_kernel_rows(rng) -> dict:
             q, k, v, mask, with_lse=True), 20, "attention_fwd_kernel"),
         plain_ms=device_ms(lambda: attention.attention_plain(q, k, v, mask),
                            10),
-        bound_ms=max(t_ops, t_bytes) * 1e3,
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        **attention_bounds(4 * flops, nbytes, PEAK_SPLIT_TF32_FLOPS),
         library_ms=lib_fwd_ms,
         wall_ms=event_ms(lambda: attention.attention_fwd(
             q, k, v, mask, with_lse=True), 20))
+    info["attention_train_fwd"] = reckoned(
+        mask, 4 * flops, nbytes, MS_BEFORE["attention_train_fwd"])
     # q, k, v, out, dOut in; dq, dk, dv out
     nbytes = 8 * B * T * H * hd * 4 + 2 * B * H * T * 4 + B * T * 4
-    t_ops, t_bytes = 10 * flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
     bwd = lambda: attention.attention_bwd(  # noqa: E731
         q, k, v, mask, out, lse, g)
     rows["attention_train_bwd"] = dict(
@@ -403,10 +579,11 @@ def training_kernel_rows(rng) -> dict:
             "attention_bwd_dq_kernel")},
         plain_ms=device_ms(lambda: attention.attention_bwd_plain(
             q, k, v, mask, g), 5),
-        bound_ms=max(t_ops, t_bytes) * 1e3,
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        **attention_bounds(10 * flops, nbytes, PEAK_SPLIT_TF32_FLOPS),
         library_ms=lib_bwd_ms, wall_ms=event_ms(bwd, 10))
-    return rows
+    info["attention_train_bwd"] = reckoned(
+        mask, 10 * flops, nbytes, MS_BEFORE["attention_train_bwd"])
+    return rows, info
 
 
 def stage_breakdown(p, img, realistic, reps: int = 3) -> dict:
@@ -456,9 +633,14 @@ def stage_breakdown(p, img, realistic, reps: int = 3) -> dict:
         p(img)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    attn = [e for e in events if "attention_fwd_kernel" in e.key]
     out.update(profiled_page_wall_ms=wall, device_busy_ms=busy,
-               device_idle_share=1.0 - busy / out["page_wall_ms"])
+               device_idle_share=1.0 - busy / out["page_wall_ms"],
+               attention_fwd_kernel_ms=sum(
+                   e.self_device_time_total for e in attn) / 1e3,
+               attention_fwd_kernel_calls=sum(e.count for e in attn))
     return out
 
 
@@ -570,8 +752,17 @@ def phase_main_path():
         "(random weights; not required)")
     for impl in ("xla", "fused"):
         pipe.transformer.set_attn_impl(impl)
+        st = stage_breakdown(pipe, img, realistic)
         log(f"stage breakdown [{impl}] (one page, workers=1): "
-            f"{json.dumps(stage_breakdown(pipe, img, realistic))}")
+            f"{json.dumps(st)}")
+    calls = st["attention_fwd_kernel_calls"]
+    if calls <= 0:
+        raise AssertionError("the profiled fused page ran no attention kernel")
+    log(f"fused page: the attention forward kernel took "
+        f"{st['attention_fwd_kernel_ms']:.4f} ms of device time in {calls} "
+        f"launches ({st['attention_fwd_kernel_ms'] / calls:.4f} ms a launch) "
+        f"in the profiled page; decode profiled alone: "
+        f"{st['decode_device_busy_ms']:.4f} ms of kernels")
     # the decode stage alone, in turns on the same windows
     turns = []
     for impl in ("xla", "fused", "fused", "xla"):
@@ -640,8 +831,15 @@ def step_work(model, batches) -> dict:
     out = dict(matmul_flops=3 * sum(counted),
                attention_flops=14 * d.embed_dim * pairs,
                encoder_keys_unmasked_share=enc_keys / (b * s))
+    # the matmuls run in f32 on the CUDA cores (TF32 off, as the reference
+    # needs); the attention kernels in the split-tf32 form
     out["bound_ms"] = (out["matmul_flops"] + out["attention_flops"]) \
         / PEAK_F32_FLOPS * 1e3
+    out["attention_bound_ms_split_tf32"] = \
+        out["attention_flops"] / PEAK_SPLIT_TF32_FLOPS * 1e3
+    out["bound_ms_split_tf32_attention"] = \
+        out["matmul_flops"] / PEAK_F32_FLOPS * 1e3 \
+        + out["attention_bound_ms_split_tf32"]
     return out
 
 
@@ -861,6 +1059,7 @@ def main() -> int:
     launches = results["fused"]["launches"]
     kernels_line = []
     for key, counts in (("nms", launches), ("attention_float32", launches),
+                        ("attention_float32_nomask", launches),
                         ("attention_train_fwd", train_launches),
                         ("attention_train_bwd", train_launches)):
         r = dict(rows[key])

@@ -15,8 +15,12 @@ The kernels multiply the scores by ``1/sqrt(hd)`` where
 :func:`attention_plain` divides by ``sqrt(hd)``. At hd 16 and 64 (the
 model's width) ``sqrt(hd)`` is a power of two and the two are the same
 operation; at other widths they differ by at most one rounding of each
-score. The larger difference is the order of the f32 sums (64-key tiles),
-so the kernels are held to their plain versions at atol/rtol 1e-4 in f32.
+score. The larger differences are the order of the sums (key and query
+tiles) and the tensor cores' arithmetic: f32 operands are split into two
+tf32 parts and multiplied in three passes (``csrc/attention_mma.cuh``),
+which keeps close to f32 accuracy. So the kernels are held to their plain
+versions at atol/rtol 1e-4 in f32. They skip key tiles whose mask entries
+are all -inf, which changes no result: such keys add exact zeros.
 """
 from __future__ import annotations
 

@@ -4,8 +4,8 @@ The kernels have a plain C interface and are bound with ctypes. At first
 use every ``csrc/*.cu`` compiles in its own ``nvcc`` process (all started
 together) for ``sm_90a``, and one more ``nvcc`` links the objects into a
 shared library under ``build/kernels/`` (listed in ``.gitignore``), named
-by a hash of the sources, the flags and the nvcc version
-(:mod:`..shlib`).
+by a hash of every file under ``csrc/`` (the ``.cuh`` headers the sources
+include too), the flags and the nvcc version (:mod:`..shlib`).
 
 Nothing here runs at import time, and nothing falls back: a failed build
 raises with the compiler's output.
@@ -18,14 +18,13 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 from .. import shlib
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build", "kernels")
-SOURCES = ("nms.cu", "attention.cu", "attention_bwd.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -70,12 +69,24 @@ def nvcc_path() -> str:
     return found
 
 
+def nvcc_version() -> str:
+    return subprocess.run([nvcc_path(), "--version"], stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True).stdout
+
+
+def csrc_files(*exts: str) -> List[str]:
+    """The files under ``csrc/`` with one of the extensions ``exts``,
+    sorted."""
+    return sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                  if f.endswith(exts))
+
+
 def library_path() -> str:
-    ver = subprocess.run([nvcc_path(), "--version"], stdout=subprocess.PIPE,
-                         stderr=subprocess.STDOUT, text=True).stdout
+    """The library's path, hashed over every source and header, so that an
+    edited header rebuilds too."""
     return shlib.hashed_path(
-        BUILD_DIR, "libftcn_kernels", ver + " ".join(NVCC_FLAGS),
-        [os.path.join(CSRC_DIR, src) for src in SOURCES])
+        BUILD_DIR, "libftcn_kernels", nvcc_version() + " ".join(NVCC_FLAGS),
+        csrc_files(".cu", ".cuh"))
 
 
 def build() -> str:
@@ -88,8 +99,7 @@ def build() -> str:
         return out
     t0 = time.perf_counter()
     reports = shlib.compile_and_link(
-        nvcc_path(), NVCC_FLAGS, ARCH_FLAGS,
-        [os.path.join(CSRC_DIR, src) for src in SOURCES], out)
+        nvcc_path(), NVCC_FLAGS, ARCH_FLAGS, csrc_files(".cu"), out)
     build_info.update(seconds=time.perf_counter() - t0, library=out,
                       ptxas=reports)
     return out

@@ -8,8 +8,9 @@ also runs on a machine without JAX:
 
 Tolerances: the NMS kernel computes the same compares and one expf per
 pixel as the plain version (atol 1e-6). The attention kernels sum scores in
-another order (64-key tiles, online softmax; the backward rebuilds the
-softmax from the forward's log-sum-exp): f32 within atol 1e-4, rtol 1e-4;
+another order (key tiles, online softmax; the backward rebuilds the
+softmax from the forward's log-sum-exp) and multiply on the tensor cores in
+split tf32: f32 within atol 1e-4, rtol 1e-4;
 bf16 outputs round to 8 bits and the plain version also rounds the softmax
 weights to bf16, so atol 3e-2.
 """
@@ -97,8 +98,9 @@ def test_attention_kernel_matches_plain_at_decode_shape(cuda, dtype, atol,
     np.testing.assert_allclose(got[:3], want[:3], atol=atol, rtol=rtol)
 
 
-@pytest.mark.parametrize("hd", [8, 16, 24, 32, 40, 48, 72, 128, 256])
+@pytest.mark.parametrize("hd", [8, 16, 24, 32, 40, 48, 72, 128, 256, 13, 30])
 def test_attention_kernel_small_heads_and_cross_shapes(cuda, hd):
+    """Tq != Tk; hd 13 and 30 (hd % 4 != 0) take 4-byte copies."""
     q, k, v, mask = _attn_inputs(3, 24, 40, 4, hd, torch.float32, seed=2,
                                  lengths=[40, 17, 1])
     want = attention.attention_plain(q, k, v, mask)
@@ -181,6 +183,97 @@ def test_attention_bwd_kernel_matches_plain(cuda, hd):
     dk, dv = got[1].cpu(), got[2].cpu()
     assert (dk[1, 37:] == 0).all() and (dv[1, 37:] == 0).all()
     assert (dk[2, 1:] == 0).all() and (dv[2, 1:] == 0).all()
+
+
+def _gap_mask(b, tk, gaps):
+    """Additive (B,1,1,Tk) key mask with the key ranges ``gaps[i]`` of
+    window i masked (whole 64-key tiles and parts of tiles)."""
+    enc = torch.ones((b, tk, 2))
+    for i, ranges in enumerate(gaps):
+        for lo, hi in ranges:
+            enc[i, lo:hi] = 0.0
+    return make_key_mask(enc)
+
+
+# window 0: whole tiles masked at the head, in the middle and at the tail;
+# window 1: a partial head tile, a whole middle tile, keys past one tile
+# boundary; window 2: one key left; window 3: fully masked
+_GAPS = [[(0, 64), (128, 192), (256, 300)], [(0, 40), (64, 128), (250, 300)],
+         [(0, 199), (200, 300)], [(0, 300)]]
+
+
+@pytest.mark.parametrize("hd", [8, 24, 64, 72, 128, 256])
+def test_attention_kernels_skip_masked_tiles_exactly(cuda, hd):
+    """Forward (with its log-sum-exp) and backward against the plain
+    versions where whole key tiles are masked at the head, in the middle
+    and at the tail, Tk = 300 (not a multiple of 64) and Tq = 100 != Tk.
+    Masked keys take exact-zero gradients; the fully masked window is NaN
+    (lse -inf) on both sides."""
+    rng = np.random.default_rng(hd)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(
+        (4, t, 3, hd)).astype(np.float32)) for t in (100, 300, 300, 100))
+    mask = _gap_mask(4, 300, _GAPS)
+    want = attention.attention_plain(q, k, v, mask)
+    want_lse = torch.logsumexp(
+        torch.einsum("bqhd,bkhd->bhqk", q, k) / np.sqrt(hd) + mask, dim=-1)
+    want_grads = attention.attention_bwd_plain(q, k, v, mask, g)
+    qc, kc, vc, mc, gc = (x.to(cuda) for x in (q, k, v, mask, g))
+    out, lse = attention.attention_fwd(qc, kc, vc, mc, with_lse=True)
+    got_grads = attention.attention_bwd(qc, kc, vc, mc, out, lse, gc)
+    torch.cuda.synchronize()
+    out, lse = out.cpu().numpy(), lse.cpu().numpy()
+    assert np.isnan(out[3]).all() and np.isnan(want[3].numpy()).all()
+    assert (lse[3] == -np.inf).all()
+    np.testing.assert_allclose(out[:3], want[:3].numpy(), atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(lse[:3], want_lse[:3].numpy(), atol=1e-4,
+                               rtol=1e-4)
+    for name, a, w in zip(("dq", "dk", "dv"), got_grads, want_grads):
+        a, w = a.cpu().numpy(), w.numpy()
+        assert np.isnan(a[3]).all() and np.isnan(w[3]).all(), name
+        np.testing.assert_allclose(a[:3], w[:3], atol=1e-4, rtol=1e-4,
+                                   err_msg=name)
+    masked = (mask[:3, 0, 0] == -np.inf).numpy()
+    for a in got_grads[1:]:
+        assert (a[:3].cpu().numpy()[masked] == 0).all()
+
+
+@pytest.mark.parametrize("hd", [13, 30])
+def test_attention_fwd_bf16_head_width_not_a_multiple_of_16_bytes(cuda, hd):
+    """bf16 with hd % 8 != 0: the kernel loads one element at a time;
+    Tq 150 > Tk 70."""
+    q, k, v, mask = _attn_inputs(3, 150, 70, 2, hd, torch.bfloat16, seed=hd,
+                                 lengths=[70, 65, 3])
+    want = attention.attention_plain(q, k, v, mask)
+    got = attention.fused_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                                    mask.to(cuda))
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().numpy(), atol=3e-2)
+
+
+def test_attention_fwd_bf16_with_masked_tiles_at_decode_shape(cuda):
+    q, k, v, _ = _attn_inputs(4, 400, 400, 12, 64, torch.bfloat16, seed=7)
+    mask = _gap_mask(4, 400, [[(0, 64), (128, 192)], [(300, 400)],
+                              [(0, 399)], [(0, 400)]])
+    want = attention.attention_plain(q, k, v, mask).float().numpy()
+    got = attention.fused_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                                    mask.to(cuda)).float().cpu().numpy()
+    assert np.isnan(got[3]).all() and np.isnan(want[3]).all()
+    np.testing.assert_allclose(got[:3], want[:3], atol=3e-2)
+
+
+def test_attention_bwd_kernel_is_bit_identical_run_to_run(cuda):
+    """No atomics: two launches on the same inputs agree bit for bit."""
+    q, k, v, mask = _attn_inputs(4, 400, 400, 12, 64, torch.float32, seed=8,
+                                 lengths=[400, 311, 57, 200])
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(8))
+    qc, kc, vc, mc, gc = (x.to(cuda) for x in (q, k, v, mask, g))
+    out, lse = attention.attention_fwd(qc, kc, vc, mc, with_lse=True)
+    first = attention.attention_bwd(qc, kc, vc, mc, out, lse, gc)
+    second = attention.attention_bwd(qc, kc, vc, mc, out, lse, gc)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_fused_attention_autograd_on_card_launches_both_kernels(cuda):

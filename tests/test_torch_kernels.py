@@ -5,6 +5,9 @@ Tolerances: NMS atol 1e-6 (the same compares; sigmoid to an ulp or two).
 Attention rtol/atol 1e-5 (f32 sums in another order; the scale is a
 power of two, so dividing and multiplying agree exactly).
 """
+import os
+import shutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +20,7 @@ from findtextcenternet_tpu.ops.attention import supported as jsupported
 from findtextcenternet_tpu.ops.pallas_kernels import nms_sigmoid_masked as jnms
 from findtextcenternet_tpu_torch.models.transformer import (
     MultiheadAttn, make_key_mask)
-from findtextcenternet_tpu_torch.ops import attention, nms
+from findtextcenternet_tpu_torch.ops import attention, kernels, nms
 
 
 def _nms_inputs(seed):
@@ -123,3 +126,19 @@ def test_multihead_attn_routes_every_jax_kernel_site(monkeypatch, hd,
 
 def test_jax_is_on_the_cpu():
     assert jax.default_backend() == "cpu"
+
+
+def test_kernel_library_is_named_by_its_headers_too(monkeypatch, tmp_path):
+    """The build compiles only the ``.cu`` sources, but the library's hash
+    covers the ``.cuh`` headers they include: an edited header rebuilds."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC_DIR, csrc)
+    monkeypatch.setattr(kernels, "CSRC_DIR", str(csrc))
+    monkeypatch.setattr(kernels, "nvcc_version", lambda: "nvcc V12.8")
+    assert {os.path.basename(p) for p in kernels.csrc_files(".cu")} == {
+        "nms.cu", "attention.cu", "attention_bwd.cu"}
+    before = kernels.library_path()
+    assert kernels.library_path() == before
+    header = csrc / "attention_mma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert kernels.library_path() != before
