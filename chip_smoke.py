@@ -11,8 +11,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 2. Build: compiles the CUDA kernels (csrc/*.cu, sm_90a) and the native line
    engine and host ops from the checkout's sources, all at once; prints the
    build seconds and each kernel's registers / shared memory (ptxas).
-3. Kernels vs plain at the main paths' shapes: the NMS kernel at
-   (8,192,192) with plateau ties and an ownership mask; the attention
+3. Kernels vs plain at the main paths' shapes: the NMS kernel at a page's
+   two chunk sizes, (8,192,192) and (4,192,192), with plateau ties and an
+   ownership mask, two launches bit for bit, its launch floor (the
+   profiler time of a one-element fill and of the kernel on one (1,4,4)
+   map) and the wrapper's host time a call over 1,000 unsynchronised
+   calls; the attention
    forward kernel at the decode shape B=4, T=400, H=12, hd=64 in f32 and
    bf16, with tail key masks and one fully masked window, in f32 with no
    mask (the decoder's self-attention, 80 of a page's 170 launches), and at
@@ -29,19 +33,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    unmasked keys, the 64-key tiles the mask lets the kernels skip, the f32
    CUDA-core bound, and the time of the FMA-loop kernels they replaced
    (``ms_before``, quoted from PERF.md).
-4. Serving path: OCRPipeline with the xl detector (bf16) and the full
-   768-d 12-head 10+10-block 400-token Transformer, random weights from
-   torch.Generator(0) drawn like flax's defaults, on a synthetic 2048x1448
-   page (12 tiles). A detections hook swaps in a realistic synthetic box
-   set after the full detector pass, so decode runs at a realistic load.
-   One pipeline runs both attention routes (``Transformer.set_attn_impl``,
-   the route ``decode_attention`` selects): ocr_pages runs windows of 8
-   pages in turns xla, fused, fused, xla, xla, fused. The NMS kernel must
-   launch in every window, the attention kernel in every fused window and
-   never in an xla one. The heatmap must be finite and the output well
+4. Serving path: OCRPipeline under the default config (the device page
+   merge and device-resident glyph features) with the xl detector (bf16)
+   and the full 768-d 12-head 10+10-block 400-token Transformer, random
+   weights from torch.Generator(0) drawn like flax's defaults, on a
+   synthetic 2048x1448 page (12 tiles in chunks of 8 and 4). The default
+   path's detections must equal the host-merge, host-feature path's bit
+   for bit on the page. A detections hook then swaps in a realistic
+   synthetic box set after the full detector pass (its f16 features on the
+   card for the default path, the same values as an f32 array for the host
+   path), so decode runs at a realistic load. One pipeline runs both
+   attention routes (``Transformer.set_attn_impl``, the route
+   ``decode_attention`` selects): ocr_pages runs windows of 4 pages in
+   turns xla, fused, fused, xla, xla, fused. The NMS kernel must launch
+   twice a page, the mosaic merge twice a page and the device feature
+   gather at least once a page, the attention kernel in every fused window
+   and never in an xla one. Then the host path and the default path run
+   windows of 3 pages in turns default, host, host, default, and their
+   outputs must be equal. The heatmap must be finite and the output well
    formed. Prints ms/page and tiles/s per window (and their median and
-   spread per route), peak device memory, each stage's time, the device's
-   idle share over one page (kernel time from the profiler over the median
+   spread per route), peak device memory, each stage's time and the bytes
+   read back from the device a page on both paths, the device's idle share
+   over one page (kernel time from the profiler over the median
    unprofiled page wall time), the attention kernel's time and launches in
    that profiled page, and the decode stage timed in turns.
 5. Training path: train3's full-width state (the 768-d, 12-head,
@@ -60,7 +73,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the norm of each tensor's difference within 1e-3 of its norm; the
    gradient norms are printed beside).
 6. Reference check on a small input: the tiny detector and a tiny
-   Transformer on the GPU against the same weights on the CPU.
+   Transformer on the GPU against the same weights on the CPU, and the tiny
+   model's default page path against its host path on the GPU, bit for bit,
+   on a page that yields detections.
 
 The second-to-last line is the kernels JSON (one row per kernel and shape,
 with the launches of the path it serves), the last line
@@ -88,7 +103,13 @@ KEY_TILE = 64                     # keys a skipped tile holds at hd <= 64
 # run's measurements
 MS_BEFORE = {"attention_float32": 0.119753, "attention_bfloat16": 0.118593,
              "attention_train_fwd": 0.776599, "attention_train_bwd": 3.629922}
+# the one-thread-a-pixel NMS kernel's time at (8,192,192), quoted the same
+# way
+NMS_MS_BEFORE = 0.003238
 PAGE_W, PAGE_H, CHAR = 2048, 1448, 28
+# pages a window of ocr_pages: the default path's xla / fused turns, and
+# the host path beside the default one
+PAGES, HOST_PAIR_PAGES = 4, 3
 TRAIN_WARMUP, TRAIN_STEPS, TRAIN_PROFILED = 2, 6, 2
 
 
@@ -149,11 +170,13 @@ def event_ms(fn, iters: int, warmup: int = 3) -> float:
     return a.elapsed_time(b) / iters
 
 
-def device_ms(fn, iters: int, match=None) -> float:
+def device_ms(fn, iters: int, match=None, per_call: int = 1) -> float:
     """Mean device time per call of the CUDA kernels ``fn`` launches (all
     of them, or those whose name contains ``match``), from the profiler;
     launch gaps on the host are not counted. Raises if the profiler saw no
-    device time."""
+    device time. With ``match``, ``fn`` launches ``per_call`` such kernels:
+    where the profiler saw fewer launches than ``iters`` calls make, the
+    mean is taken over the launches it saw, and a line says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -162,13 +185,32 @@ def device_ms(fn, iters: int, match=None) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
+    total, seen = 0.0, 0
     for ev in prof.key_averages():
         if match is None or match in ev.key:
             total += ev.self_device_time_total
+            seen += ev.count
     if total <= 0:
         raise RuntimeError(f"profiler saw no device time for {match}")
+    if match is not None and seen != iters * per_call:
+        log(f"profiler saw {seen} launches of {match} in {iters} calls "
+            f"({per_call} a call); mean over those it saw")
+        return total / 1e3 / seen * per_call
     return total / 1e3 / iters
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host time per call in µs over ``calls`` unsynchronised calls (the
+    device synchronised before and after, outside the timing)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return t
 
 
 def unmasked_keys(mask) -> int:
@@ -309,6 +351,93 @@ def phase_build():
     kernels.lib()
 
 
+def nms_rows(rng) -> dict:
+    """The NMS kernel at a page's two chunk sizes, (8, 192, 192) and
+    (4, 192, 192), with plateau ties and an ownership mask, against its
+    plain version (atol 1e-6) and itself (two launches bit for bit); its
+    device time beside the bytes bound, the launch floor (the profiler time
+    of the smallest launches: a one-element fill, and this kernel on one
+    (1, 4, 4) map) and the wrapper's host time a call over 1,000
+    unsynchronised calls."""
+    import torch
+
+    from findtextcenternet_tpu_torch.ops import nms
+
+    dev = torch.device("cuda")
+    one = torch.zeros(1, device=dev)
+    x1 = torch.zeros((1, 4, 4), device=dev)
+    floor = {"fill_1_element_ms": device_ms(lambda: one.fill_(1.0), 200),
+             "nms_1x4x4_ms": device_ms(
+                 lambda: nms.nms_sigmoid_masked(x1, x1), 200,
+                 "nms_sigmoid_masked_kernel")}
+    rows, inputs = {}, {}
+    for b in (8, 4):
+        h = w = 192
+        # B=8 takes the first draw of the phase's generator, as before;
+        # B=4 its own, so the attention rows keep their inputs
+        g = rng if b == 8 else np.random.default_rng(b)
+        x = g.standard_normal((b, h, w)).astype(np.float32)
+        x[:, 50:52, 60:63] = 4.0                   # plateau ties
+        x[:, 0:2, 0:2] = 5.0                       # plateaus at the borders
+        x[:, -2:, -3:] = 4.5
+        m = np.zeros((b, h, w), np.float32)        # ownership region
+        m[:, 38:155, 38:155] = 1.0
+        m[0] = 1.0
+        xt, mt = torch.from_numpy(x).to(dev), torch.from_numpy(m).to(dev)
+        inputs[b] = xt, mt
+        got = nms.nms_sigmoid_masked(xt, mt)
+        again = nms.nms_sigmoid_masked(xt, mt)
+        want = nms.nms_sigmoid_masked_plain(xt, mt)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        same = bool(torch.equal(got, again))
+        log(f"nms_sigmoid_masked ({b},{h},{w}): max_abs_err {err:.3g} "
+            f"(tolerance 1e-6); two launches bit-identical: {same}")
+        if not (err <= 1e-6 and same):
+            raise AssertionError(f"NMS kernel disagrees: {err}, {same}")
+        call = lambda: nms.nms_sigmoid_masked(xt, mt)  # noqa: E731
+        rows["nms" if b == 8 else f"nms_b{b}"] = {
+            "name": "nms_sigmoid_masked", "route": "cuda",
+            "source": "findtextcenternet_tpu_torch/csrc/nms.cu",
+            "replaces": "findtextcenternet_tpu/ops/pallas_kernels.py:51",
+            "max_abs_err": err,
+            "ms": device_ms(call, 200, "nms_sigmoid_masked_kernel"),
+            "plain_ms": device_ms(
+                lambda: nms.nms_sigmoid_masked_plain(xt, mt), 200),
+            # logits and mask read once, the output written once
+            "bound_ms": 3 * b * h * w * 4 / PEAK_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None,
+            "wall_ms": event_ms(call, 200), "host_us_per_call": host_us(call),
+            "launch_floor_ms": floor["fill_1_element_ms"],
+            "shape": [b, h, w], "path": "serving",
+        }
+    # the wrapper's host time by part, us a call over 1,000 unsynchronised
+    # calls at B=8: the output's allocation, the ctypes call that launches
+    # the kernel, and the rest (checks, device and stream lookup, counter)
+    from findtextcenternet_tpu_torch.ops import kernels
+    fn = kernels.lib().ftcn_nms_sigmoid_masked
+    xt, mt = inputs[8]
+    out = torch.empty_like(xt)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (xt.data_ptr(), mt.data_ptr(), out.data_ptr())
+    parts = {"empty_like_us": host_us(lambda: torch.empty_like(xt)),
+             "ctypes_launch_us": host_us(lambda: fn(*ptrs, 8, 192, 192,
+                                                     stream))}
+    parts["wrapper_us"] = host_us(lambda: nms.nms_sigmoid_masked(xt, mt))
+    parts["rest_us"] = (parts["wrapper_us"] - parts["empty_like_us"]
+                        - parts["ctypes_launch_us"])
+    log(f"nms wrapper host time by part (B=8): {json.dumps(parts)}")
+    r = rows["nms"]
+    log(f"nms launch floor (profiler, this card): {json.dumps(floor)}; "
+        f"(8,192,192) at {r['ms'] / r['bound_ms']:.2f}x its bound, "
+        f"{(r['ms'] - floor['fill_1_element_ms']) / r['bound_ms']:.2f}x it "
+        f"above the floor")
+    log(f"nms_sigmoid_masked (8,192,192), quoted from PERF.md (the kernel "
+        f"this one replaced; not measured here): "
+        f"{json.dumps({'ms_before': NMS_MS_BEFORE})}")
+    return rows
+
+
 def phase_kernels():
     """Kernels vs plain at main-path shapes; returns the per-kernel rows
     (launches filled in later)."""
@@ -316,44 +445,14 @@ def phase_kernels():
     import torch.nn.functional as F
 
     from findtextcenternet_tpu_torch.models.transformer import make_key_mask
-    from findtextcenternet_tpu_torch.ops import attention, nms
+    from findtextcenternet_tpu_torch.ops import attention
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     rows, info = {}, {}
 
-    # --- NMS at one full chunk: (8, 192, 192) ---------------------------
-    b, h, w = 8, 192, 192
-    x = rng.standard_normal((b, h, w)).astype(np.float32)
-    x[:, 50:52, 60:63] = 4.0                   # plateau ties
-    x[:, 0:2, 0:2] = 5.0                       # plateau at the border
-    m = np.zeros((b, h, w), np.float32)        # ownership region
-    m[:, 38:155, 38:155] = 1.0
-    m[0] = 1.0
-    xt, mt = torch.from_numpy(x).to(dev), torch.from_numpy(m).to(dev)
-    got = nms.nms_sigmoid_masked(xt, mt)
-    want = nms.nms_sigmoid_masked_plain(xt, mt)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    log(f"nms_sigmoid_masked (8,192,192): max_abs_err {err:.3g} "
-        f"(tolerance 1e-6)")
-    if not err <= 1e-6:
-        raise AssertionError(f"NMS kernel disagrees: {err}")
-    nbytes = 3 * b * h * w * 4
-    rows["nms"] = {
-        "name": "nms_sigmoid_masked", "route": "cuda",
-        "source": "findtextcenternet_tpu_torch/csrc/nms.cu",
-        "replaces": "findtextcenternet_tpu/ops/pallas_kernels.py:51",
-        "max_abs_err": err,
-        "ms": device_ms(lambda: nms.nms_sigmoid_masked(xt, mt), 200,
-                        "nms_sigmoid_masked_kernel"),
-        "plain_ms": device_ms(lambda: nms.nms_sigmoid_masked_plain(xt, mt),
-                              200),
-        "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": None,
-        "wall_ms": event_ms(lambda: nms.nms_sigmoid_masked(xt, mt), 200),
-        "shape": [b, h, w], "path": "serving",
-    }
+    # --- NMS at a page's two chunk sizes: (8|4, 192, 192) ----------------
+    rows.update(nms_rows(rng))
 
     # --- attention at the decode shape -------------------------------------
     B, T, H, hd = 4, 400, 12, 64
@@ -573,7 +672,7 @@ def training_kernel_rows(rng):
         base, name="attention_bwd",
         source="findtextcenternet_tpu_torch/csrc/attention_bwd.cu",
         replaces="findtextcenternet_tpu/ops/attention.py:124",
-        max_abs_err=bwd_err, ms=device_ms(bwd, 10, "attention_bwd"),
+        max_abs_err=bwd_err, ms=device_ms(bwd, 10, "attention_bwd", 3),
         kernel_ms={name: device_ms(bwd, 10, name) for name in (
             "attention_bwd_dot_kernel", "attention_bwd_dkdv_kernel",
             "attention_bwd_dq_kernel")},
@@ -589,8 +688,10 @@ def training_kernel_rows(rng):
 def stage_breakdown(p, img, realistic, reps: int = 3) -> dict:
     """Median host-clock ms of each pipeline stage on one page (device
     synchronised around each), the kernel time of the detector and decode
-    stages, and the device's idle share over one full page: 1 - (kernel
-    time of one profiled page) / (median wall time of unprofiled pages)."""
+    stages, the device's idle share over one full page: 1 - (kernel time of
+    one profiled page) / (median wall time of unprofiled pages), and the
+    bytes the page path reads back from the device (``run_detector`` alone,
+    and the whole page with its decode)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -609,7 +710,12 @@ def stage_breakdown(p, img, realistic, reps: int = 3) -> dict:
     page_dev = p._upload(page[..., 0])        # the grayscale upload path
 
     def detect_device():
-        return p._launch_chunks(page_dev, offs, bounds)
+        # the detector, peaks and maps of every chunk, with the readbacks
+        # started at launch; on the fused path the mosaic merge and the
+        # code sampling too
+        chunks, mosaic = p._launch_chunks(page_dev, offs, bounds)
+        if mosaic is not None:
+            p._finish_page(mosaic, chunks)
 
     out = {}
     out["detect_device_ms"], _ = med(detect_device)
@@ -641,43 +747,69 @@ def stage_breakdown(p, img, realistic, reps: int = 3) -> dict:
                attention_fwd_kernel_ms=sum(
                    e.self_device_time_total for e in attn) / 1e3,
                attention_fwd_kernel_calls=sum(e.count for e in attn))
+    p.readback_bytes.reset()
+    p.run_detector(img)
+    out["readback_bytes_run_detector"] = p.readback_bytes.count
+    p.readback_bytes.reset()
+    p(img)
+    out["readback_bytes_page"] = p.readback_bytes.count
     return out
 
 
 def phase_main_path():
-    """xl detector + full Transformer page OCR, xla and fused in turns."""
+    """The default config's page OCR (device page merge, device-resident
+    glyph features): xl detector + full Transformer, xla and fused
+    attention in turns; then the host-merge, host-feature path beside it."""
+    import dataclasses
+
     import torch
 
     from findtextcenternet_tpu_torch.config import Config
     from findtextcenternet_tpu_torch.infer.pipeline import (
-        DetectedPage, OCRPipeline, ocr_pages)
+        DetectedPage, LazyFeatures, OCRPipeline, ocr_pages)
     from findtextcenternet_tpu_torch.ops import attention, nms
 
     t0 = time.perf_counter()
     cfg = Config()
+    host_cfg = dataclasses.replace(cfg, inference=dataclasses.replace(
+        cfg.inference, fused_page_merge=False, device_features=False))
     pipe = OCRPipeline(cfg, seed=0)
+    if not pipe._lazy_features:
+        raise AssertionError("the default config does not take the device "
+                             "page merge and device features")
     log(f"main path: {cfg.detector.model_size} detector + "
         f"{cfg.transformer.embed_dim}-d "
         f"{cfg.transformer.head_num}-head {cfg.transformer.enc_block_num}+"
         f"{cfg.transformer.dec_block_num}-block Transformer at "
         f"{cfg.transformer.max_enc_seq_len} tokens, random weights "
-        f"(torch.Generator(0)); built in {time.perf_counter() - t0:.1f} s")
+        f"(torch.Generator(0)), the default config (fused_page_merge, "
+        f"device_features); built in {time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(0)
     img, raw_locs, lines, seps = synth_page_and_boxes(rng)
+    # synthetic glyph features as the detector leaves them: f16 on the card
+    # (the default path gathers them there); the host path gets the same
+    # values as an f32 array
     feats = rng.standard_normal(
-        (len(raw_locs), cfg.detector.feature_dim)).astype(np.float32)
-    locs, feats = pipe._filter_boxes(raw_locs, feats, img, lines, seps,
-                                     np.zeros(lines.shape + (4,), np.float32))
-    realistic = DetectedPage(locations=locs, features=feats, lines=lines,
-                             seps=seps)
-    stream, _ = pipe.build_feature_stream(pipe.run_line_engine(realistic),
-                                          feats)
+        (len(raw_locs), cfg.detector.feature_dim)).astype(np.float16)
+    lazy = LazyFeatures(torch.from_numpy(feats).to("cuda"),
+                        np.arange(len(raw_locs)))
+    locs, kept = pipe._filter_boxes(raw_locs, lazy, img, lines, seps,
+                                    np.zeros(lines.shape + (4,), np.float32))
+    realistic = {"default": DetectedPage(locs, kept, lines, seps),
+                 "host": DetectedPage(locs, np.asarray(kept), lines, seps)}
+
+    def use(path):
+        pipe.cfg = cfg if path == "default" else host_cfg
+        pipe.detections_hook = lambda page_, image: realistic[path]
+
+    stream, _ = pipe.build_feature_stream(
+        pipe.run_line_engine(realistic["default"]), kept)
     windows = pipe.split_windows(stream, cfg.transformer.max_enc_seq_len)
     _, _, offs, _ = pipe.tile_grid(*img.shape[:2])
-    n_tiles = len(offs)
-    log(f"page {PAGE_W}x{PAGE_H}: {n_tiles} tiles, {len(locs)} boxes after "
-        f"the filter, {len(windows)} decode windows")
+    n_tiles, n_chunks = len(offs), len(pipe._chunk_sizes(len(offs)))
+    log(f"page {PAGE_W}x{PAGE_H}: {n_tiles} tiles in {n_chunks} chunks, "
+        f"{len(locs)} boxes after the filter, {len(windows)} decode windows")
 
     # the detector on the page's first chunk: finite, expected shapes
     with torch.inference_mode():
@@ -697,51 +829,87 @@ def phase_main_path():
         f"|max| {float(heat.float().abs().max()):.3g}")
     del heat, fmap, tiles
 
-    pipe.detections_hook = lambda page_, image: realistic
+    # the default path's detections against the host path's, bit for bit,
+    # on the page itself (no hook)
+    pipe.detections_hook = None
+    dets = {}
+    for path in ("default", "host"):
+        pipe.cfg = cfg if path == "default" else host_cfg
+        dets[path] = pipe.run_detector(img)
+    a, b = dets["default"], dets["host"]
+    if len(a.locations) and not isinstance(a.features, LazyFeatures):
+        raise AssertionError("the default path read the features back")
+    for name, x, y in (("locations", a.locations, b.locations),
+                       ("features", np.asarray(a.features), b.features),
+                       ("lines", a.lines, b.lines),
+                       ("seps", a.seps, b.seps)):
+        np.testing.assert_array_equal(x, y, err_msg=name)
+    log(f"run_detector default path == host path bit for bit on the xl "
+        f"page: {len(a.locations)} locations after the filter (random "
+        f"weights), features {a.features.shape}, lines/seps {a.lines.shape}")
+    del dets, a, b
+
+    use("default")
     for impl in ("xla", "fused"):                      # warm-up
         pipe.transformer.set_attn_impl(impl)
         ocr_pages(pipe, [img], workers=1)
+    use("host")
+    ocr_pages(pipe, [img], workers=1)
     torch.cuda.synchronize()
 
-    pages = 8
-    results, texts = {}, {}
-    for turn, impl in enumerate(("xla", "fused", "fused", "xla", "xla",
-                                 "fused")):
+    def window(path, impl, pages):
+        use(path)
         pipe.transformer.set_attn_impl(impl)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        nms.launches.reset()
-        attention.launches.reset()
+        for c in (nms.launches, attention.launches, pipe.mosaic_merges,
+                  pipe.feature_gathers):
+            c.reset()
         t0 = time.perf_counter()
         outs = ocr_pages(pipe, [img] * pages, workers=2)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = {"nms_sigmoid_masked": nms.launches.count,
-                  "attention_fwd": attention.launches.count}
+                  "attention_fwd": attention.launches.count,
+                  "mosaic_merges": pipe.mosaic_merges.count,
+                  "feature_gathers": pipe.feature_gathers.count}
         for out in outs:
             if set(out) != {"box", "line", "block", "text", "aozora",
                             "noruby"} or not isinstance(out["text"], str):
                 raise AssertionError(f"malformed output: {sorted(out)}")
         if any(out != outs[0] for out in outs):
             raise AssertionError("the same page decoded differently")
-        if counts["nms_sigmoid_masked"] <= 0:
-            raise AssertionError(f"[{impl}] NMS kernel never launched")
+        if counts["nms_sigmoid_masked"] != n_chunks * pages:
+            raise AssertionError(f"[{path} {impl}] NMS launched "
+                                 f"{counts['nms_sigmoid_masked']} times on "
+                                 f"{pages} pages of {n_chunks} chunks")
         if (counts["attention_fwd"] > 0) != (impl == "fused"):
             raise AssertionError(f"[{impl}] attention kernel launched "
                                  f"{counts['attention_fwd']} times")
-        texts.setdefault(impl, outs[0]["text"])
-        window = dict(turn=turn, impl=impl, pages=pages,
-                      ms_per_page=dt / pages * 1e3,
-                      tiles_per_s=n_tiles * pages / dt,
-                      max_memory_allocated=torch.cuda.max_memory_allocated(),
-                      launches=counts)
-        log(f"main path window: {json.dumps(window)}")
+        merged = counts["mosaic_merges"] == n_chunks * pages
+        gathered = counts["feature_gathers"] >= pages
+        if (path == "default") != merged or (path == "default") != gathered:
+            raise AssertionError(f"[{path}] mosaic merges / feature gathers: "
+                                 f"{counts}")
+        w = dict(path=path, impl=impl, pages=pages,
+                 ms_per_page=dt / pages * 1e3,
+                 tiles_per_s=n_tiles * pages / dt,
+                 max_memory_allocated=torch.cuda.max_memory_allocated(),
+                 launches=counts)
+        log(f"main path window: {json.dumps(w)}")
+        return w, outs[0]
+
+    results, texts = {}, {}
+    for turn, impl in enumerate(("xla", "fused", "fused", "xla", "xla",
+                                 "fused")):
+        w, out = window("default", impl, PAGES)
+        texts.setdefault(impl, out["text"])
         r = results.setdefault(impl, dict(
             boxes_per_page=len(locs), windows_per_page=len(windows),
-            out_chars=len(outs[0]["text"]), out_boxes=len(outs[0]["box"]),
-            max_memory_allocated=window["max_memory_allocated"],
-            launches=counts, ms_per_page_windows=[]))
-        r["ms_per_page_windows"].append(window["ms_per_page"])
+            out_chars=len(out["text"]), out_boxes=len(out["box"]),
+            max_memory_allocated=w["max_memory_allocated"],
+            launches=w["launches"], ms_per_page_windows=[]))
+        r["ms_per_page_windows"].append(w["ms_per_page"])
     for impl, r in results.items():
         ms = r["ms_per_page_windows"]
         r.update(ms_per_page_median=float(np.median(ms)),
@@ -750,11 +918,30 @@ def phase_main_path():
         log(f"main path [{impl}]: {json.dumps(r)}")
     log(f"xla vs fused decoded text equal: {texts['xla'] == texts['fused']} "
         "(random weights; not required)")
-    for impl in ("xla", "fused"):
+
+    # the host-merge, host-feature path beside the default one, in turns
+    pair, outs = {}, {}
+    for path in ("default", "host", "host", "default"):
+        w, outs[path] = window(path, "fused", HOST_PAIR_PAGES)
+        pair.setdefault(path, []).append(w["ms_per_page"])
+    if outs["host"] != outs["default"]:
+        raise AssertionError("the host path's output differs from the "
+                             "default path's")
+    log(f"host path vs default path (fused attention, {HOST_PAIR_PAGES} "
+        f"pages a window): outputs equal (text, boxes, lines); ms/page "
+        f"{json.dumps(pair)}")
+
+    stages = {}
+    for path, impl in (("default", "xla"), ("default", "fused"),
+                       ("host", "fused")):
+        use(path)
         pipe.transformer.set_attn_impl(impl)
-        st = stage_breakdown(pipe, img, realistic)
-        log(f"stage breakdown [{impl}] (one page, workers=1): "
+        st = stage_breakdown(pipe, img, realistic[path])
+        stages[(path, impl)] = st
+        log(f"stage breakdown [{path} {impl}] (one page, workers=1): "
             f"{json.dumps(st)}")
+    use("default")
+    st = stages[("default", "fused")]
     calls = st["attention_fwd_kernel_calls"]
     if calls <= 0:
         raise AssertionError("the profiled fused page ran no attention kernel")
@@ -763,6 +950,11 @@ def phase_main_path():
         f"launches ({st['attention_fwd_kernel_ms'] / calls:.4f} ms a launch) "
         f"in the profiled page; decode profiled alone: "
         f"{st['decode_device_busy_ms']:.4f} ms of kernels")
+    log(f"readback bytes a page, default / host path: run_detector "
+        f"{st['readback_bytes_run_detector']} / "
+        f"{stages[('host', 'fused')]['readback_bytes_run_detector']}, whole "
+        f"page {st['readback_bytes_page']} / "
+        f"{stages[('host', 'fused')]['readback_bytes_page']}")
     # the decode stage alone, in turns on the same windows
     turns = []
     for impl in ("xla", "fused", "fused", "xla"):
@@ -1003,6 +1195,69 @@ def phase_training():
     return launches
 
 
+def device_path_reference():
+    """The tiny model's default path (device page merge, device features)
+    against its host-merge, host-feature path on the card, bit for bit, on
+    a page that yields detections (the xl page's random weights leave none
+    after the filter)."""
+    import dataclasses
+
+    import torch
+
+    from findtextcenternet_tpu_torch.config import Config
+    from findtextcenternet_tpu_torch.infer.pipeline import (
+        LazyFeatures, OCRPipeline)
+    from findtextcenternet_tpu_torch.models.detector import (
+        CenterNetDetection)
+    from findtextcenternet_tpu_torch.models.init import init_flax_defaults_
+
+    # the tiny detector in f32, as the CPU tests run it: its random keymap
+    # leaves peaks above the cutoff
+    det = init_flax_defaults_(CenterNetDetection("tiny"),
+                              torch.Generator().manual_seed(0))
+    det = det.to("cuda").eval()
+    cfg = Config()
+    cfg = dataclasses.replace(
+        cfg, detector=dataclasses.replace(cfg.detector, model_size="tiny"),
+        transformer=dataclasses.replace(
+            cfg.transformer, embed_dim=32, head_num=4, enc_block_num=1,
+            dec_block_num=1, max_enc_seq_len=24, max_dec_seq_len=24),
+        inference=dataclasses.replace(cfg.inference, tile_size=256,
+                                      detector_batch=2,
+                                      max_peaks_per_tile=64),
+        mask_predict=dataclasses.replace(cfg.mask_predict, max_rounds=2))
+    dev = OCRPipeline(cfg, model_size="tiny", seed=1, detector_apply=det)
+    host = OCRPipeline(
+        dataclasses.replace(cfg, inference=dataclasses.replace(
+            cfg.inference, fused_page_merge=False, device_features=False)),
+        transformer_state=dev.transformer.state_dict(), model_size="tiny",
+        detector_apply=det)
+    rng = np.random.default_rng(1)
+    page = np.full((420, 610, 3), 255, np.uint8)
+    for i in range(7):
+        x = 40 + 80 * i
+        page[60:95, x:x + 35] = int(rng.integers(0, 40))
+        page[200:240, x:x + 40] = int(rng.integers(0, 40))
+    n = []
+    for twopass in (False, True):
+        a = dev.run_detector(page, twopass=twopass)
+        b = host.run_detector(page, twopass=twopass)
+        if not (len(a.locations) and isinstance(a.features, LazyFeatures)):
+            raise AssertionError("the tiny page yields no device detections")
+        for name, x, y in (("locations", a.locations, b.locations),
+                           ("features", np.asarray(a.features), b.features),
+                           ("lines", a.lines, b.lines),
+                           ("seps", a.seps, b.seps)):
+            np.testing.assert_array_equal(x, y, err_msg=name)
+        n.append(len(a.locations))
+    if dev(page) != host(page):
+        raise AssertionError("tiny model: default and host path outputs "
+                             "differ")
+    log(f"reference: tiny model default path == host path on the card bit "
+        f"for bit ({n[0]} locations, {n[1]} with two passes; OCR output "
+        f"equal)")
+
+
 def phase_reference():
     """Small input: GPU (kernels) against CPU (plain versions)."""
     import torch
@@ -1032,6 +1287,8 @@ def phase_reference():
     if not torch.equal(pg["valid"].cpu(), pc["valid"]):
         raise AssertionError("peak validity differs GPU/CPU")
 
+    device_path_reference()
+
     dims = TransformerDims(enc_input_dim=20, embed_dim=32, head_num=4,
                            enc_block_num=2, dec_block_num=2,
                            max_enc_seq_len=16, max_dec_seq_len=16)
@@ -1058,7 +1315,8 @@ def main() -> int:
     phase_reference()
     launches = results["fused"]["launches"]
     kernels_line = []
-    for key, counts in (("nms", launches), ("attention_float32", launches),
+    for key, counts in (("nms", launches), ("nms_b4", launches),
+                        ("attention_float32", launches),
                         ("attention_float32_nomask", launches),
                         ("attention_train_fwd", train_launches),
                         ("attention_train_bwd", train_launches)):

@@ -1,18 +1,18 @@
 """Typed configuration (the port's own copy of the JAX package's config).
 
 Frozen dataclasses that serialize to/from plain dicts (JSON), field for
-field the same as ``findtextcenternet_tpu.config`` so one JSON config
-drives both packages. Two differences:
+field the same as ``findtextcenternet_tpu.config`` (defaults included) so
+one JSON config drives both packages. One difference:
+``TransformerConfig.attn_impl`` accepts ``"xla"`` (the einsum composition),
+``"fused"`` (the hand-written attention kernels) or ``"auto"`` (the
+default, as in JAX: :func:`resolve_attn_impl` makes it ``"fused"`` on a
+CUDA device and ``"xla"`` on the CPU); ``InferenceConfig.decode_attention``
+accepts only ``"xla"`` or ``"fused"``. Both raise on anything else.
 
-* ``TransformerConfig.attn_impl`` accepts ``"xla"`` (the einsum
-  composition), ``"fused"`` (the hand-written attention kernels) or
-  ``"auto"`` (the default, as in JAX: :func:`resolve_attn_impl` makes it
-  ``"fused"`` on a CUDA device and ``"xla"`` on the CPU);
-  ``InferenceConfig.decode_attention`` accepts only ``"xla"`` or
-  ``"fused"``. Both raise on anything else.
-* ``InferenceConfig.device_features`` and ``fused_page_merge`` default to
-  ``False``: the port runs the host-merge, host-feature path, and its
-  pipeline raises ``NotImplementedError`` if either is set.
+Every inference path of the JAX config is ported (the device page merge
+and device-resident glyph features, on by default, and the host-merge,
+host-feature path with both off) except ``decode_len_buckets``: the
+pipeline raises ``NotImplementedError`` when it is set.
 """
 from __future__ import annotations
 
@@ -134,9 +134,13 @@ class InferenceConfig:
     max_windows_per_page: int = 0
     # page maps leave the device as uint8 (round(p*255)); False ships f32
     quantize_maps: bool = True
-    # readback optimisations of the JAX package; not ported yet
-    device_features: bool = False
-    fused_page_merge: bool = False
+    # glyph features stay on the device: the host tracks row indices and
+    # the decode gathers the rows (live model only; bit-exact with False)
+    device_features: bool = True
+    # the per-tile maps max-merge into a page mosaic on the device, which
+    # samples the 3x3 code max-pool too; only the packed peaks, the sampled
+    # codes and the line/sep planes are read back (bit-exact with False)
+    fused_page_merge: bool = True
 
     def __post_init__(self):
         check_attention_impl("decode_attention", self.decode_attention)

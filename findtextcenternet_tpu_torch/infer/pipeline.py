@@ -6,19 +6,27 @@ Counterpart of ``findtextcenternet_tpu/infer/pipeline.py``:
   the device; tiles run through the detector in chunks of
   ``detector_batch`` (a power-of-two bucket for the remainder), and peak
   extraction runs on the device (:mod:`..ops.peaks`, whose NMS is the CUDA
-  kernel on the GPU);
-* the per-tile maps merge on the host, where the histogram-contrast
-  filter, greedy IoU dedup, separator rejection and 3x3 code max-pool run
-  (native ``hostops``);
+  kernel on the GPU); each chunk's readbacks start as it is launched;
+* ``fused_page_merge`` (the default): each chunk's maps max-merge into a
+  page mosaic on the device, which also samples the 3x3 code max-pool at
+  every peak; only the packed peaks, the sampled codes and the line/sep
+  planes are read back. With it off the per-tile maps are read back and
+  merged on the host;
+* the histogram-contrast filter, greedy IoU dedup and separator rejection
+  run on the host (native ``hostops``);
+* ``device_features`` (the default, live decoder only): glyph features
+  stay on the device (:class:`LazyFeatures`), the host tracks row indices
+  through the filter, the line engine and the windows
+  (:class:`FeatureStream`), and the decode gathers the rows on the device;
 * reading order comes from the native line engine (ctypes);
 * the encoder stream is cut into windows and decoded by batched
   mask-predict; the output dict holds per-box / per-line / per-block
   entries and the text with ruby markup, aozora and noruby variants.
 
-This is the JAX package's host-merge, host-feature path
-(``fused_page_merge=False, device_features=False``); those two readback
-optimisations, ``decode_len_buckets`` and mesh serving are not ported yet
-(see ROADMAP.md) and raise ``NotImplementedError``.
+The default path and the host-merge, host-feature path
+(``fused_page_merge=False, device_features=False``) are bit-exact with
+each other. ``decode_len_buckets`` is not ported yet and raises
+``NotImplementedError``; mesh serving is not ported either (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..config import Config
 from ..const import FEATURE_DIM, MAX_ENCODER_LEN, SCALE
@@ -36,6 +45,7 @@ from ..device import resolve_device
 from ..models.detector import CenterNetDetection
 from ..models.init import init_flax_defaults_
 from ..models.transformer import Transformer, TransformerDims, mask_predict
+from ..ops.kernels import LaunchCounter
 from ..ops.peaks import extract_peaks
 from ..utils.text import codes_to_text, decode_ruby
 from . import hostops, lineengine
@@ -148,9 +158,107 @@ def batch_hist_contrast(img: np.ndarray, rects: np.ndarray) -> np.ndarray:
 @dataclasses.dataclass
 class DetectedPage:
     locations: np.ndarray      # (N, 9): score, cx, cy, w, h, code1..4
-    features: np.ndarray       # (N, feature_dim)
+    features: np.ndarray       # (N, feature_dim), or a LazyFeatures view
     lines: np.ndarray          # page textline prob map (H/4, W/4)
     seps: np.ndarray           # page separator prob map
+
+
+class LazyFeatures:
+    """Glyph features on the device, addressed by host row indices.
+
+    ``dev`` is the page's flat (N, feature_dim) f16 tensor on the device,
+    ``idx`` the int64 rows of this view. The filter and the line engine only
+    index rows (``feats[keep]``), which slices ``idx``; ``np.asarray`` reads
+    back the viewed rows alone, cast to f32 on the device. The decode never
+    reads them back: it ships the indices and gathers on the device.
+    """
+
+    ndim = 2
+
+    def __init__(self, dev: torch.Tensor, idx):
+        self.dev = dev
+        self.idx = np.asarray(idx, np.int64).reshape(-1)
+
+    @property
+    def shape(self):
+        return (len(self.idx), int(self.dev.shape[-1]))
+
+    def __len__(self):
+        return len(self.idx)
+
+    def __getitem__(self, k):
+        return LazyFeatures(self.dev, self.idx[k])
+
+    def __array__(self, dtype=None, copy=None):
+        rows = torch.from_numpy(self.idx).to(self.dev.device)
+        out = self.dev[rows].float().cpu().numpy()
+        return out.astype(dtype) if dtype is not None else out
+
+    def astype(self, dtype):
+        return np.asarray(self).astype(dtype)
+
+
+class FeatureStream(np.ndarray):
+    """Encoder stream whose glyph-feature columns stay on the device.
+
+    A (total, enc_dim) f32 array: the flag and separator columns are real,
+    the ``[:feature_dim]`` columns of glyph rows are zero, and ``glyph_idx``
+    (total,) int64 maps each row to its row of ``glyph_dev`` (-1 for
+    separator rows). Derived arrays (slices, copies, ``astype``) do not
+    inherit the two attributes, since their rows no longer line up with the
+    indices; :meth:`OCRPipeline.decode_windows` raises on such a stream
+    rather than decode its zero columns.
+    """
+
+    glyph_idx: Optional[np.ndarray] = None
+    glyph_dev: Optional[torch.Tensor] = None
+
+    def __array_finalize__(self, obj):
+        self.glyph_idx = None
+        self.glyph_dev = None
+
+
+class _HostCopy:
+    """A device-to-host copy started now: for a CUDA tensor into pinned
+    memory with ``non_blocking=True`` and an event on the tensor's current
+    stream (the counterpart of ``copy_to_host_async``); a CPU tensor is its
+    own copy. :meth:`numpy` waits for the copy."""
+
+    def __init__(self, t: torch.Tensor):
+        self._event = None
+        if t.device.type == "cpu":
+            self._host = t
+            return
+        self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        self._host.copy_(t, non_blocking=True)
+        self._event = torch.cuda.Event()
+        self._event.record(torch.cuda.current_stream(t.device))
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
+@dataclasses.dataclass
+class _Chunk:
+    """One launched chunk of a page's tiles: its first tile and real tile
+    count, its device outputs, and the readbacks started at launch (None
+    where the output stays on the device)."""
+    i0: int
+    n: int
+    packed: torch.Tensor             # (B, K, 10) f32
+    feat: torch.Tensor               # (B, K, F) f16
+    offs: Optional[torch.Tensor]     # (B, 2) int64 tile offsets (fused)
+    packed_host: _HostCopy
+    feat_host: Optional[_HostCopy]
+    maps_host: Optional[_HostCopy]
+
+
+def _dequantize(a: np.ndarray) -> np.ndarray:
+    """uint8 ``round(p*255)`` maps back to f32 (the host path's numpy ops
+    on both paths, so they stay bit-exact); f32 maps pass through."""
+    return a.astype(np.float32) / 255.0 if a.dtype == np.uint8 else a
 
 
 class OCRPipeline:
@@ -174,13 +282,15 @@ class OCRPipeline:
         ``detector_apply(images) -> (heatmap (B,H/4,W/4,9), features
         (B,H/4,W/4,F))`` and ``decode_fn(enc_input) -> (codes (B,L),
         probs)`` replace the model calls while every pipeline stage stays
-        (the hooks the differential tests use).
+        (the hooks the differential tests use). A ``decode_fn`` hook turns
+        the device-resident features off, as in JAX.
+
+        ``mosaic_merges`` (chunks merged into a page mosaic),
+        ``feature_gathers`` (decode batches gathered on the device) and
+        ``readback_bytes`` (device-to-host bytes of the page path) count
+        what the device path did.
         """
         ic = config.inference
-        if ic.fused_page_merge or ic.device_features:
-            raise NotImplementedError(
-                "fused_page_merge / device_features are not ported yet "
-                "(ROADMAP.md); the port runs the host-merge path")
         if ic.decode_len_buckets:
             raise NotImplementedError(
                 "decode_len_buckets is not ported yet (ROADMAP.md)")
@@ -215,10 +325,23 @@ class OCRPipeline:
 
         mp = config.mask_predict
         self._apply_fn = detector_apply or self.detector
+        self._live_decode = decode_fn is None
         self._decode = decode_fn or (lambda enc_input: mask_predict(
             self.transformer, enc_input, max_rounds=mp.max_rounds,
             topk=mp.topk, remask_threshold=mp.remask_threshold,
             early_stop_threshold=mp.early_stop_threshold))
+        self.mosaic_merges = LaunchCounter("mosaic_merges")
+        self.feature_gathers = LaunchCounter("feature_gathers")
+        self.readback_bytes = LaunchCounter("readback_bytes")
+
+    @property
+    def _lazy_features(self) -> bool:
+        """Device-resident glyph features: ``device_features`` on the fused
+        page path, for the live decoder only (JAX's gate; the mesh, which
+        JAX also excludes, is not ported)."""
+        ic = self.cfg.inference
+        return bool(ic.device_features and ic.fused_page_merge
+                    and self._live_decode)
 
     # ------------------------------------------------------------------
     # stage 1: tiled detection
@@ -279,10 +402,13 @@ class OCRPipeline:
         return tiles
 
     @staticmethod
-    def _fetch_peaks(packed, feat) -> Dict[str, np.ndarray]:
-        """Unpack the (B, K, 10) peak readback plus the f16 features."""
-        packed = packed.cpu().numpy()
-        return {
+    def _fetch_peaks(packed: _HostCopy,
+                     feat: Optional[_HostCopy] = None) -> Dict[str, np.ndarray]:
+        """Wait for and unpack the (B, K, 10) peak readback, plus the f16
+        features where they were read back (``None`` on the
+        device-features path, whose buffer stays on the device)."""
+        packed = packed.numpy()
+        out = {
             "score": packed[..., 0],
             "x": packed[..., 1].astype(np.int32),
             "y": packed[..., 2].astype(np.int32),
@@ -290,8 +416,10 @@ class OCRPipeline:
             "h": packed[..., 4],
             "codes": packed[..., 5:9],
             "valid": packed[..., 9] > 0.5,
-            "feature": feat.cpu().numpy(),
         }
+        if feat is not None:
+            out["feature"] = feat.numpy()
+        return out
 
     def _chunk_sizes(self, n: int) -> List[int]:
         """Split ``n`` tiles into ``detector_batch`` chunks, the remainder
@@ -339,28 +467,89 @@ class OCRPipeline:
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
+    def _readback(self, t: torch.Tensor) -> _HostCopy:
+        """Start the device-to-host copy of ``t`` (counted in
+        ``readback_bytes``)."""
+        self.readback_bytes.add(t.numel() * t.element_size())
+        return _HostCopy(t)
+
+    def _merge_maps(self, mosaic: torch.Tensor, maps: torch.Tensor,
+                    offs) -> None:
+        """Max-merge a chunk's pre-masked (B, ms, ms, C) tile maps into the
+        page mosaic in place, at the real tiles' offsets ``offs``
+        ``[(x, y), ...]`` (padded slots carry all-zero maps and are
+        skipped). Tiles overlap at the seams, so they merge one after
+        another."""
+        ms = maps.shape[1]
+        for i, (x, y) in enumerate(offs):
+            sl = mosaic[y // SCALE:y // SCALE + ms, x // SCALE:x // SCALE + ms]
+            torch.maximum(sl, maps[i], out=sl)
+        self.mosaic_merges.add()
+
+    @torch.inference_mode()
+    def _finish_page(self, mosaic: torch.Tensor, chunks: List[_Chunk]):
+        """After every chunk merged: the 3x3 code max-pool of the merged
+        mosaic sampled at each chunk's peaks, and the (mh, mw, 2) line/sep
+        planes. The clipped 3x3 neighbourhood the host path takes equals a
+        same-size max-pool padded with -inf, since the window always holds
+        its centre. ``F.max_pool2d`` takes no uint8 on CUDA, so a quantized
+        mosaic pools as an exact f32 copy (0..255) and casts back. The
+        sampled codes stay raw: the dequantize and the max with the peaks'
+        own codes run on the host with the host path's numpy ops, which
+        keeps the two paths bit-exact."""
+        codes = mosaic[..., 2:6].permute(2, 0, 1)[None].float()
+        pooled = F.max_pool2d(codes, 3, stride=1, padding=1)[0]
+        pooled = pooled.permute(1, 2, 0).to(mosaic.dtype)      # (mh, mw, 4)
+        sampled = []
+        for c in chunks:
+            xs = c.packed[..., 1].long() + c.offs[:, 0:1] // SCALE
+            ys = c.packed[..., 2].long() + c.offs[:, 1:2] // SCALE
+            sampled.append(pooled[ys, xs])                      # (B, K, 4)
+        return sampled, mosaic[..., :2].contiguous()
+
+    @torch.inference_mode()
     def _launch_chunks(self, page_dev: torch.Tensor, offs, bounds):
         """Launch :meth:`_detect` on every chunk of the page's tiles (the
-        last chunk padded to its bucket) before any readback; returns
-        ``[(first tile, real tiles, packed, feature, maps), ...]``."""
-        pending = []
+        last chunk padded to its bucket), starting each chunk's readbacks
+        before the next launch. On the fused path each chunk's maps merge
+        into the page mosaic (made on the first chunk) and stay on the
+        device, as the feature buffers do with device features. Returns
+        ``([_Chunk, ...], mosaic)``, the mosaic None on the host-merge
+        path."""
+        ic = self.cfg.inference
+        fused, lazy = ic.fused_page_merge, self._lazy_features
+        chunks, mosaic = [], None
         i0 = 0
         for size in self._chunk_sizes(len(offs)):
             n = min(size, len(offs) - i0)
             coffs = offs[i0:i0 + n] + [(0, 0)] * (size - n)
             cbounds = np.asarray(
                 bounds[i0:i0 + n] + [(0, 0, 0, 0)] * (size - n), np.int32)
-            packed, feat, cmaps = self._detect(
+            packed, feat, maps = self._detect(
                 self._page_tiles(page_dev, coffs), self._upload(cbounds))
-            pending.append((i0, n, packed, feat, cmaps))
+            if fused:
+                if mosaic is None:
+                    mosaic = maps.new_zeros(
+                        (page_dev.shape[0] // SCALE,
+                         page_dev.shape[1] // SCALE, maps.shape[-1]))
+                self._merge_maps(mosaic, maps, coffs[:n])
+            chunks.append(_Chunk(
+                i0=i0, n=n, packed=packed, feat=feat,
+                offs=self._upload(np.asarray(coffs, np.int64))
+                if fused else None,
+                packed_host=self._readback(packed),
+                feat_host=None if lazy else self._readback(feat),
+                maps_host=None if fused else self._readback(maps)))
             i0 += n
-        return pending
+        return chunks, mosaic
 
+    @torch.inference_mode()
     def run_detector(self, img: np.ndarray,
                      twopass: bool = False) -> DetectedPage:
         ic = self.cfg.inference
         tile = ic.tile_size
         step = int(tile * ic.stride_ratio)
+        fused, lazy = ic.fused_page_merge, self._lazy_features
 
         if img.dtype != np.uint8:
             # accept [0,1] and 0..255 float pages; NaN maps to 0
@@ -373,6 +562,11 @@ class OCRPipeline:
         img = np.pad(img, [[0, pady], [0, padx], [0, 0]],
                      constant_values=255)
         H, W = img.shape[:2]
+
+        # device features: the per-chunk f16 buffers are kept and glyph rows
+        # are addressed by index into their concatenation (pre-pass first)
+        featbufs: List[torch.Tensor] = []
+        feat_base = 0
 
         # two-pass: a whole-page low-resolution pre-pass catches characters
         # larger than one tile; its detections (scaled back) are merged
@@ -394,7 +588,12 @@ class OCRPipeline:
             packed1, feat1, _ = self._detect(
                 self._page_tiles(self._upload(im1), [(0, 0)] * B1),
                 self._upload(bounds1))
-            peaks = self._fetch_peaks(packed1, feat1)
+            peaks = self._fetch_peaks(
+                self._readback(packed1),
+                None if lazy else self._readback(feat1))
+            if lazy:
+                featbufs.append(feat1)
+                feat_base = feat1.shape[0] * feat1.shape[1]
             for pi in np.where(peaks["valid"][0])[0]:
                 w0 = float(peaks["w"][0, pi]) * s
                 h0 = float(peaks["h"][0, pi]) * s
@@ -407,45 +606,64 @@ class OCRPipeline:
                 pre_locs.append(np.array(
                     [peaks["score"][0, pi], ix, iy, w0, h0,
                      *peaks["codes"][0, pi]], np.float32))
-                pre_feats.append(peaks["feature"][0, pi])
+                # device features: the row of tile 0 of the pre-pass buffer
+                pre_feats.append(int(pi) if lazy
+                                 else peaks["feature"][0, pi])
         mh, mw = H // SCALE, W // SCALE
         ms = tile // SCALE
 
         locations: List[np.ndarray] = [np.stack(pre_locs)] if pre_locs \
             else []
-        glyphfeats: List[np.ndarray] = [np.stack(pre_feats)] \
-            if pre_feats else []
+        glyphfeats: List[np.ndarray] = []
+        if pre_feats:
+            glyphfeats.append(np.asarray(pre_feats, np.int64) if lazy
+                              else np.stack(pre_feats))
 
         # the page uploads once (one channel when the page is grayscale in
         # RGB, as book scans are) and tiles are cut on the device; every
-        # chunk is launched before the first readback
+        # chunk is launched before the first readback is waited for
         gray = bool((img[..., 0] == img[..., 1]).all()
                     and (img[..., 0] == img[..., 2]).all())
-        pending = self._launch_chunks(
+        chunks, mosaic = self._launch_chunks(
             self._upload(img[..., 0] if gray else img), offs, bounds)
 
-        lines_all = np.zeros((mh, mw), np.float32)
-        seps_all = np.zeros((mh, mw), np.float32)
-        codes_all = np.zeros((mh, mw, 4), np.float32)
-        for i0, n, packed, feat, cmaps in pending:
-            peaks = self._fetch_peaks(packed, feat)
-            maps = cmaps.cpu().numpy()
-            if maps.dtype == np.uint8:
-                maps = maps.astype(np.float32) / 255.0
-            for bi in range(n):
-                x, y = offs[i0 + bi]
-                xs, ys = x // SCALE, y // SCALE
-                sl = np.s_[ys:ys + ms, xs:xs + ms]
-                # maps arrive pre-masked by the ownership region
-                np.maximum(lines_all[sl], maps[bi, ..., 0],
-                           out=lines_all[sl])
-                np.maximum(seps_all[sl], maps[bi, ..., 1],
-                           out=seps_all[sl])
-                np.maximum(codes_all[sl], maps[bi, ..., 2:6],
-                           out=codes_all[sl])
+        codes_all = None
+        chunk_codes: List[Optional[_HostCopy]] = [None] * len(chunks)
+        if fused:
+            # the code mosaic stays on the device unless the two-pass
+            # pre-detections need it below
+            sampled, planes = self._finish_page(mosaic, chunks)
+            chunk_codes = [self._readback(c) for c in sampled]
+            planes = _dequantize(self._readback(planes).numpy())
+            lines_all = np.ascontiguousarray(planes[..., 0])
+            seps_all = np.ascontiguousarray(planes[..., 1])
+        else:
+            lines_all = np.zeros((mh, mw), np.float32)
+            seps_all = np.zeros((mh, mw), np.float32)
+            codes_all = np.zeros((mh, mw, 4), np.float32)
+
+        for c, cds in zip(chunks, chunk_codes):
+            n = c.n
+            peaks = self._fetch_peaks(c.packed_host, c.feat_host)
+            if cds is not None:
+                peaks["codes"] = np.maximum(peaks["codes"],
+                                            _dequantize(cds.numpy()))
+            else:
+                maps = _dequantize(c.maps_host.numpy())
+                for bi in range(n):
+                    x, y = offs[c.i0 + bi]
+                    xs, ys = x // SCALE, y // SCALE
+                    sl = np.s_[ys:ys + ms, xs:xs + ms]
+                    # maps arrive pre-masked by the ownership region
+                    np.maximum(lines_all[sl], maps[bi, ..., 0],
+                               out=lines_all[sl])
+                    np.maximum(seps_all[sl], maps[bi, ..., 1],
+                               out=seps_all[sl])
+                    np.maximum(codes_all[sl], maps[bi, ..., 2:6],
+                               out=codes_all[sl])
 
             # row-major over (tile, peak): the per-tile, per-peak order
-            offc = np.asarray(offs[i0:i0 + n], np.int64)
+            offc = np.asarray(offs[c.i0:c.i0 + n], np.int64)
             w = peaks["w"][:n]
             h = peaks["h"][:n]
             ok = (peaks["valid"][:n] & (w > 0) & (h > 0)
@@ -463,14 +681,35 @@ class OCRPipeline:
                     peaks["codes"][:n],
                 ], axis=-1).astype(np.float32)
                 locations.append(rows[ok])
-                glyphfeats.append(peaks["feature"][:n][ok])
+                if lazy:
+                    # np.nonzero is row-major over (tile, peak), the order
+                    # rows[ok] flattens in
+                    ti, pk = np.nonzero(ok)
+                    glyphfeats.append(feat_base + ti * c.feat.shape[1] + pk)
+                else:
+                    glyphfeats.append(peaks["feature"][:n][ok])
+            if lazy:
+                featbufs.append(c.feat)
+                feat_base += c.feat.shape[0] * c.feat.shape[1]
 
         if not locations or not sum(len(a) for a in locations):
             return DetectedPage(np.zeros((0, 9), np.float32),
                                 np.zeros((0, FEATURE_DIM), np.float32),
                                 lines_all, seps_all)
         loc = np.concatenate(locations).astype(np.float32)
-        feats = np.concatenate(glyphfeats).astype(np.float32)
+        if lazy:
+            feats = LazyFeatures(
+                torch.cat([b.reshape(-1, b.shape[-1]) for b in featbufs]),
+                np.concatenate(glyphfeats))
+        else:
+            feats = np.concatenate(glyphfeats).astype(np.float32)
+        if fused and pre_locs:
+            # the two-pass pre-detections were not sampled on the device:
+            # read the code mosaic back and sample them on the host
+            cm = _dequantize(self._readback(
+                mosaic[..., 2:6].contiguous()).numpy())
+            loc[:len(pre_locs)] = self._sample_codes_host(
+                cm, loc[:len(pre_locs)])
         loc, feats = self._filter_boxes(loc, feats, img, lines_all, seps_all,
                                         codes_all)
         return DetectedPage(loc, feats, lines_all, seps_all)
@@ -523,7 +762,11 @@ class OCRPipeline:
                     np.zeros((0, FEATURE_DIM), np.float32))
         keep2 = np.asarray(keep2)
         loc, feats = loc[keep2], feats[keep2]
-        return self._sample_codes_host(codes_all, loc), feats
+        # the fused page path sampled the codes on the device
+        # (codes_all is None then)
+        if codes_all is not None:
+            loc = self._sample_codes_host(codes_all, loc)
+        return loc, feats
 
     @staticmethod
     def _sample_codes_host(codes_all, loc):
@@ -573,7 +816,9 @@ class OCRPipeline:
                              glyphfeatures: np.ndarray
                              ) -> Tuple[np.ndarray, List[Tuple]]:
         """(feature_dim + 6)-d encoder stream with block/line separator
-        rows; dimensions derive from the features."""
+        rows; dimensions derive from the features. For :class:`LazyFeatures`
+        the stream is a :class:`FeatureStream` carrying device row indices
+        in place of the glyph-feature columns."""
         fdim = glyphfeatures.shape[-1] if glyphfeatures.ndim == 2 \
             else FEATURE_DIM
         enc_dim = fdim + 6
@@ -606,7 +851,9 @@ class OCRPipeline:
         total = int(pos[-1]) + 1
 
         out = np.zeros((total, enc_dim), np.float32)
-        out[pos, :fdim] = glyphfeatures[bid]
+        lazy = isinstance(glyphfeatures, LazyFeatures)
+        if not lazy:
+            out[pos, :fdim] = glyphfeatures[bid]
         out[pos, fdim:] = 5 * np.stack(
             [vert, rubybase, ruby, space, emphasis,
              np.zeros_like(vert)], 1)
@@ -622,6 +869,14 @@ class OCRPipeline:
         fi = np.full((total, 5), -1, np.int64)
         fi[pos] = rows[:, :5]
         feature_idx = list(map(tuple, fi.tolist()))
+        if lazy:
+            # the glyph-feature columns stay zero; the rows' device indices
+            # ride along and decode_windows gathers them on the device
+            out = out.view(FeatureStream)
+            gidx = np.full(total, -1, np.int64)
+            gidx[pos] = glyphfeatures.idx[bid]
+            out.glyph_idx = gidx
+            out.glyph_dev = glyphfeatures.dev
         return out, feature_idx
 
     @staticmethod
@@ -722,9 +977,24 @@ class OCRPipeline:
                        windows: List[Tuple[int, int, int, int]]
                        ) -> List[str]:
         """Batched mask-predict over all windows (chunks of at most
-        ``decode_max_batch``, padded to a power of two)."""
+        ``decode_max_batch``, padded to a power of two). A
+        :class:`FeatureStream` ships (bucket, s_len) int32 row indices with
+        each batch and its glyph rows are gathered on the device
+        (:meth:`_gather_features`): bit-exact with the host stream, since
+        the f16 buffer is the detector output the host path reads back and
+        the f16-to-f32 cast commutes with the gather."""
         if not windows:
             return []
+        gidx = getattr(features, "glyph_idx", None)
+        if isinstance(features, FeatureStream) and (
+                gidx is None or features.glyph_dev is None):
+            raise ValueError(
+                "FeatureStream lost its glyph_idx/glyph_dev (was it "
+                "copied/sliced/transformed?); its glyph-feature columns "
+                "are zeros, so decoding it would produce garbage. Pass "
+                "the original stream from build_feature_stream, or "
+                "materialize features on the host first.")
+        lazy = gidx is not None
         dims = self.transformer.dims
         enc_dim = dims.enc_input_dim
         fdim = enc_dim - 6
@@ -743,23 +1013,43 @@ class OCRPipeline:
             while bucket < cn:
                 bucket *= 2
             batch = np.zeros((bucket, s_len, enc_dim), np.float32)
+            idxb = np.full((bucket, s_len), -1, np.int32)
             for bi, wi in enumerate(chunk):
                 _, ci, cj, _ = windows[wi]
                 batch[bi, 0] = sp
                 batch[bi, 1:1 + cj - ci] = features[ci:cj]
                 batch[bi, 1 + cj - ci] = -sp
+                if lazy:
+                    idxb[bi, 1:1 + cj - ci] = gidx[ci:cj]
             # padding rows copy the first window: a fully-masked encoder
             # row would NaN its attention and defeat the early exit
             batch[cn:] = batch[0]
-            chunk_codes, _ = self._decode(self._upload(batch))
-            pending.append((chunk, chunk_codes))
+            idxb[cn:] = idxb[0]
+            enc = self._upload(batch)
+            if lazy:
+                enc = self._gather_features(enc, features.glyph_dev,
+                                            self._upload(idxb))
+            chunk_codes, _ = self._decode(enc)
+            pending.append((chunk, self._readback(chunk_codes)))
 
         texts: List[str] = [""] * len(windows)
         for chunk, chunk_codes in pending:
-            codes = chunk_codes.cpu().numpy()
+            codes = chunk_codes.numpy()
             for bi, wi in enumerate(chunk):
                 texts[wi] = codes_to_text(codes[bi])
         return texts
+
+    def _gather_features(self, enc: torch.Tensor, feats: torch.Tensor,
+                         idx: torch.Tensor) -> torch.Tensor:
+        """``enc`` (b, s, enc_dim) with the feature columns of the rows
+        where ``idx`` (b, s) >= 0 gathered from the device buffer ``feats``
+        (N, fdim); rows at -1 (start, end and separator markers) keep the
+        host's columns."""
+        fd = feats.shape[-1]
+        g = feats[idx.clamp(min=0)].to(enc.dtype)
+        feat = torch.where(idx[..., None] >= 0, g, enc[..., :fd])
+        self.feature_gathers.add()
+        return torch.cat([feat, enc[..., fd:]], -1)
 
     # ------------------------------------------------------------------
     # stage 4: assembly

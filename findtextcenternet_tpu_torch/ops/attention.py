@@ -136,14 +136,11 @@ def attention_fwd(q, k, v, key_mask: Optional[torch.Tensor] = None,
            if with_lse else None)
     if b == 0 or h == 0 or tq == 0:
         return out, lse
-    lib = kernels.lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        kernels.check(lib.ftcn_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), None if lse is None else lse.data_ptr(),
-            b, tq, tk, h, hd, _DTYPES[q.dtype], 1.0 / math.sqrt(hd), stream),
-            "attention_fwd")
+    kernels.launch(
+        kernels.lib().ftcn_attention_fwd, q.device, "attention_fwd",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), None if lse is None else lse.data_ptr(),
+        b, tq, tk, h, hd, _DTYPES[q.dtype], 1.0 / math.sqrt(hd))
     launches.add()
     return out, lse
 
@@ -167,14 +164,12 @@ def attention_bwd(q, k, v, key_mask, out, lse, g):
     if b == 0 or h == 0 or tq == 0:
         return dq, dk.zero_(), dv.zero_()
     dvec = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    lib = kernels.lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        kernels.check(lib.ftcn_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), g.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, tq, tk, h, hd,
-            1.0 / math.sqrt(hd), stream), "attention_bwd")
+    kernels.launch(
+        kernels.lib().ftcn_attention_bwd, q.device, "attention_bwd",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), g.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, tq, tk, h, hd,
+        1.0 / math.sqrt(hd))
     bwd_launches.add()
     return dq, dk, dv
 

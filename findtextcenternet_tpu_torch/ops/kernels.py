@@ -20,6 +20,8 @@ import threading
 import time
 from typing import Dict, List, Optional
 
+import torch
+
 from .. import shlib
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -36,17 +38,17 @@ build_info: Dict[str, object] = {}
 
 
 class LaunchCounter:
-    """Thread-safe count of a kernel's launches (the pipeline may run
-    pages on two threads)."""
+    """Thread-safe count of a kernel's launches, or of what a path did (the
+    pipeline may run pages on two threads)."""
 
     def __init__(self, name: str):
         self.name = name
         self._n = 0
         self._lock = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
         with self._lock:
-            self._n += 1
+            self._n += n
 
     def reset(self) -> None:
         with self._lock:
@@ -128,3 +130,16 @@ def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
+
+
+def launch(fn, device, name: str, *args) -> None:
+    """Call the C entry point ``fn(*args, stream)`` on ``device``'s current
+    stream and raise on a CUDA error. The device is made current only when
+    it is not already, and the stream is looked up as a raw handle, so a
+    launch costs little host time beside the ctypes call."""
+    if device.index == torch._C._cuda_getDevice():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    check(err, name)

@@ -13,6 +13,9 @@ import torch.nn.functional as F
 from . import kernels
 
 launches = kernels.LaunchCounter("nms_sigmoid_masked")
+# the widest map the kernel takes (kMaxWidth in csrc/nms.cu): a thread owns
+# four columns of a row, a block four rows, and a block at most 1,024 threads
+MAX_WIDTH = 1024
 
 
 def nms_peakmap(keymap_logits: torch.Tensor) -> torch.Tensor:
@@ -36,33 +39,31 @@ def nms_sigmoid_masked(keymap_logits: torch.Tensor,
                        region_mask: torch.Tensor) -> torch.Tensor:
     """(B,H,W) f32 logits + (B,H,W) f32 mask -> suppressed probabilities.
 
-    CUDA tensors must be contiguous f32 of one shape (callers pass
-    ``heatmap[..., 0].float().contiguous()``); anything else raises.
+    CUDA tensors must be contiguous f32 of one shape on one device, at most
+    ``MAX_WIDTH`` wide (callers pass ``heatmap[..., 0].float().contiguous()``);
+    anything else raises.
     """
-    if keymap_logits.device.type == "cpu":
-        return nms_sigmoid_masked_plain(keymap_logits, region_mask)
-    if keymap_logits.device.type != "cuda":
-        raise ValueError(f"unsupported device {keymap_logits.device}")
     x, m = keymap_logits, region_mask
-    if x.dim() != 3 or m.shape != x.shape:
-        raise ValueError(f"expected (B,H,W) logits and mask, got "
-                         f"{tuple(x.shape)} and {tuple(m.shape)}")
+    dev = x.device
+    if dev.type == "cpu":
+        return nms_sigmoid_masked_plain(x, m)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
     if x.dtype != torch.float32 or m.dtype != torch.float32:
         raise TypeError(f"expected float32 logits and mask, got {x.dtype} "
                         f"and {m.dtype}")
-    if m.device != x.device:
-        raise ValueError("logits and mask are on different devices")
-    if not (x.is_contiguous() and m.is_contiguous()):
-        raise ValueError("logits and mask must be contiguous")
-    b, h, w = x.shape
+    if (x.dim() != 3 or m.shape != x.shape or m.device != dev
+            or not (x.is_contiguous() and m.is_contiguous())
+            or x.shape[2] > MAX_WIDTH):
+        raise ValueError(
+            f"expected contiguous (B,H,W) logits and mask of one shape on "
+            f"one device, W <= {MAX_WIDTH}; got {tuple(x.shape)} on {dev} "
+            f"and {tuple(m.shape)} on {m.device}")
     out = torch.empty_like(x)
-    if x.numel() == 0:
-        return out
-    lib = kernels.lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        kernels.check(lib.ftcn_nms_sigmoid_masked(
-            x.data_ptr(), m.data_ptr(), out.data_ptr(), b, h, w, stream),
-            "nms_sigmoid_masked")
-    launches.add()
+    if out.numel():
+        b, h, w = x.shape
+        kernels.launch(kernels.lib().ftcn_nms_sigmoid_masked, dev,
+                       "nms_sigmoid_masked", x.data_ptr(), m.data_ptr(),
+                       out.data_ptr(), b, h, w)
+        launches.add()
     return out

@@ -7,7 +7,7 @@ also runs on a machine without JAX:
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 
 Tolerances: the NMS kernel computes the same compares and one expf per
-pixel as the plain version (atol 1e-6). The attention kernels sum scores in
+peak as the plain version (atol 1e-6). The attention kernels sum scores in
 another order (key tiles, online softmax; the backward rebuilds the
 softmax from the forward's log-sum-exp) and multiply on the tensor cores in
 split tf32: f32 within atol 1e-4, rtol 1e-4;
@@ -41,22 +41,47 @@ def cuda():
 def _nms_inputs(b, h, w, seed):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((b, h, w)).astype(np.float32)
-    # plateaus: equal-valued 2x2 blocks, where >= keeps both ties
+    # plateaus: equal-valued 2x2 blocks, where >= keeps both ties, inside
+    # and on all four borders
     x[:, 10:12, 10:12] = 4.0
     x[:, 0:2, 0:3] = 5.0
+    x[:, -2:, -3:] = 4.5
     m = (rng.uniform(size=(b, h, w)) > 0.3).astype(np.float32)
     return torch.from_numpy(x), torch.from_numpy(m)
 
 
-@pytest.mark.parametrize("shape", [(8, 192, 192), (3, 37, 50)])
-def test_nms_kernel_matches_plain(cuda, shape):
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data pointer is 4 bytes past a
+    16-byte boundary (the kernel's element-by-element path)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("shape,aligned", [
+    ((8, 192, 192), True), ((4, 192, 192), True), ((2, 64, 64), True),
+    ((3, 37, 50), True), ((1, 5, 7), True), ((2, 64, 64), False),
+    ((1, 2, 1024), True)])
+def test_nms_kernel_matches_plain(cuda, shape, aligned):
+    """Row bands of 4 (heights 37, 5 and 2 end in a short band), widths not
+    a multiple of 4 (50, 7) and a misaligned pointer (element loads), the
+    widest map the kernel takes; two launches agree bit for bit and each
+    counts once."""
     x, m = _nms_inputs(*shape, seed=0)
     want = nms.nms_sigmoid_masked_plain(x, m)
+    xc, mc = x.to(cuda), m.to(cuda)
+    if not aligned:
+        xc, mc = _misaligned(xc), _misaligned(mc)
+        assert xc.data_ptr() % 16 and xc.is_contiguous()
     before = nms.launches.count
-    got = nms.nms_sigmoid_masked(x.to(cuda), m.to(cuda))
+    got = nms.nms_sigmoid_masked(xc, mc)
+    again = nms.nms_sigmoid_masked(xc, mc)
     torch.cuda.synchronize()
-    assert nms.launches.count == before + 1
+    assert nms.launches.count == before + 2
+    assert torch.equal(got, again)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-6)
+    assert (got.cpu().numpy()[:, 0:2, 0:3] > 0).any()
 
 
 def test_nms_kernel_rejects_bad_inputs(cuda):
@@ -65,6 +90,69 @@ def test_nms_kernel_rejects_bad_inputs(cuda):
         nms.nms_sigmoid_masked(x.half(), x.half())
     with pytest.raises(ValueError):
         nms.nms_sigmoid_masked(x.transpose(1, 2), x)
+    with pytest.raises(ValueError):
+        nms.nms_sigmoid_masked(x, x[:, :8])
+    wide = torch.zeros((1, 2, nms.MAX_WIDTH + 4), device=cuda)
+    with pytest.raises(ValueError):
+        nms.nms_sigmoid_masked(wide, wide)
+
+
+def _tiny_pipelines(cuda):
+    """(default path, host path) port pipelines on the card sharing one
+    tiny f32 detector and one small Transformer's weights."""
+    import dataclasses
+
+    from findtextcenternet_tpu_torch.config import Config
+    from findtextcenternet_tpu_torch.infer.pipeline import OCRPipeline
+    from findtextcenternet_tpu_torch.models.detector import (
+        CenterNetDetection)
+
+    # the tiny detector in f32, as the CPU tests run it
+    det = init_flax_defaults_(CenterNetDetection("tiny"),
+                              torch.Generator().manual_seed(0))
+    det = det.to(cuda).eval()
+    cfg = Config()
+    cfg = dataclasses.replace(
+        cfg, detector=dataclasses.replace(cfg.detector, model_size="tiny"),
+        transformer=dataclasses.replace(
+            cfg.transformer, embed_dim=32, head_num=4, enc_block_num=1,
+            dec_block_num=1, max_enc_seq_len=24, max_dec_seq_len=24),
+        inference=dataclasses.replace(cfg.inference, tile_size=256,
+                                      detector_batch=2,
+                                      max_peaks_per_tile=64),
+        mask_predict=dataclasses.replace(cfg.mask_predict, max_rounds=2))
+    dev = OCRPipeline(cfg, model_size="tiny", detector_apply=det,
+                      device=cuda)
+    host = OCRPipeline(
+        dataclasses.replace(cfg, inference=dataclasses.replace(
+            cfg.inference, fused_page_merge=False, device_features=False)),
+        transformer_state=dev.transformer.state_dict(), model_size="tiny",
+        detector_apply=det, device=cuda)
+    return dev, host
+
+
+def test_device_path_equals_host_path_on_card(cuda):
+    dev, host = _tiny_pipelines(cuda)
+    rng = np.random.default_rng(1)
+    gray = np.full((420, 610, 3), 255, np.uint8)
+    for i in range(7):
+        x = 40 + 80 * i
+        gray[60:95, x:x + 35] = int(rng.integers(0, 40))
+        gray[200:240, x:x + 40] = int(rng.integers(0, 40))
+    color = gray.copy()
+    color[..., 2] = np.clip(color[..., 2].astype(int) + 7, 0,
+                            255).astype(np.uint8)
+    for img, twopass in ((gray, False), (color, False), (gray, True)):
+        a = dev.run_detector(img, twopass=twopass)
+        b = host.run_detector(img, twopass=twopass)
+        assert len(a.locations), "an empty page proves nothing"
+        np.testing.assert_array_equal(a.locations, b.locations)
+        np.testing.assert_array_equal(np.asarray(a.features), b.features)
+        np.testing.assert_array_equal(a.lines, b.lines)
+        np.testing.assert_array_equal(a.seps, b.seps)
+    dev.feature_gathers.reset()
+    assert dev(gray) == host(gray)
+    assert dev.feature_gathers.count > 0 and dev.mosaic_merges.count > 0
 
 
 def _attn_inputs(b, tq, tk, h, hd, dtype, seed, lengths=None):

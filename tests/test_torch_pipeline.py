@@ -9,9 +9,10 @@ be identical, except that box sizes (and the line/block extents built from
 them) decode from f32 detector outputs, which the two frameworks' conv
 algorithms sum in other orders, so those floats agree to rtol 1e-5.
 
-Both JAX pipelines run the host-merge, host-feature path
-(``fused_page_merge=False, device_features=False``), the path the port
-implements; the JAX tests hold the fused paths bit-exact to it.
+Both pipelines here run the host-merge, host-feature path
+(``fused_page_merge=False, device_features=False``);
+``test_torch_device_path`` runs the same gates under the default config
+(device page merge, device features) and holds the two paths bit-exact.
 """
 import dataclasses
 import json
@@ -298,8 +299,7 @@ def test_pipeline_without_a_card_raises(monkeypatch):
 
 
 def test_unported_paths_raise():
-    for flags in ({"fused_page_merge": True}, {"device_features": True},
-                  {"decode_len_buckets": (64,)}):
-        _, cfg = _configs(inference=flags)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            OCRPipeline(cfg, device="cpu")
+    """``decode_len_buckets`` is the one inference path still unported."""
+    _, cfg = _configs(inference={"decode_len_buckets": (64,)})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        OCRPipeline(cfg, device="cpu")
