@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (findtextcenternet_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--whole-batch]
+
+``--whole-batch`` adds a one-off measurement: the detector's batch of 32
+in one micro-batch (it does not fit the card; the peak before the failure
+is reported). With no arguments the run needs one card.
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -56,7 +60,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    read back from the device a page on both paths, the device's idle share
    over one page (kernel time from the profiler over the median
    unprofiled page wall time), the attention kernel's time and launches in
-   that profiled page, and the decode stage timed in turns.
+   that profiled page, and the decode stage timed in turns. Then a
+   bucketed page: ``decode_len_buckets`` (64, 128, 256, 400) on a
+   degenerate page of 56 short windows, on the default path's
+   FeatureStream (glyph features on the card): each bucket's windows alone
+   on the fused route (decode ms, attention launches per length, counts
+   reset just before each group; every length must reach the kernel); the
+   attention kernel's inputs recorded at every group's shapes ((64,64),
+   (16,128), (8,256), (2,400) rows x keys, 12 heads of 64) and held against
+   the plain version at 1e-4, masked and unmasked, the masked call timed
+   beside its plain version and SDPA (one kernels-line row per length,
+   with that group's launches); then the page with and without buckets on
+   both routes in turns. The bucketed texts of the xla and fused routes
+   must be equal, and equal to the host stream's.
 5. Training path: train3's full-width state (the 768-d, 12-head,
    10+10-block Transformer at 400/400 tokens, f32, dropout 0, batch 32,
    schedule-free RAdam at lr 2.5e-3, ``attn_impl="auto"``, so the attention
@@ -72,10 +88,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (rtol/atol 1e-3, the JAX package's own tolerance for this check, and
    the norm of each tensor's difference within 1e-3 of its norm; the
    gradient norms are printed beside).
-6. Reference check on a small input: the tiny detector and a tiny
-   Transformer on the GPU against the same weights on the CPU, and the tiny
-   model's default page path against its host path on the GPU, bit for bit,
-   on a page that yields detections.
+6. Detector training (train1's full width: ``Config()``, the xl
+   TextDetectorModel, 768² images, batch 32, fmask 1024 an image,
+   schedule-free AdamW, bf16 autocast over f32 parameters and losses,
+   cuDNN autotuning on) on synthetic batches on the card, targets painted
+   by the port's numpy painter: as 4 micro-batches of 8, 2 warm-up and 4
+   timed steps (ms/step, images/s, peak memory, the loss finite and the
+   parameters moving), 2 profiled steps (device ms by kernel family and
+   the top kernels, idle share), and the step's convolution and dense
+   flops counted by forward hooks with their share of the H100 SXM's dense
+   bf16 peak (989 TFLOP/s). The detector path reaches no hand-written
+   kernel. Then two shards written by the port's ShardWriter, read by
+   DetectorLoader's four spawned workers into batches of 32 (the loader's
+   images/s on the host) and one step on the card with its batch; with
+   ``--whole-batch``, the batch of 32 in one micro-batch, for its step
+   time and peak memory (or the peak before it fails, where it does not
+   fit).
+7. Reference check on a small input: the tiny detector and a tiny
+   Transformer on the GPU against the same weights on the CPU, the tiny
+   model's default page path against its host path on the GPU, bit for
+   bit, on a page that yields detections, and a tiny bucketed decode on
+   the card, on the host stream and on a FeatureStream, against the CPU.
 
 The second-to-last line is the kernels JSON (one row per kernel and shape,
 with the launches of the path it serves), the last line
@@ -84,6 +117,7 @@ with the launches of the path it serves), the last line
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -111,6 +145,15 @@ PAGE_W, PAGE_H, CHAR = 2048, 1448, 28
 # the host path beside the default one
 PAGES, HOST_PAIR_PAGES = 4, 3
 TRAIN_WARMUP, TRAIN_STEPS, TRAIN_PROFILED = 2, 6, 2
+# decode_len_buckets: the buckets of the bucketed page, the glyphs of its
+# windows (a degenerate page of many short windows)
+BUCKETS = (64, 128, 256, 400)
+BUCKET_WINDOW_GLYPHS = [8, 12, 20, 30, 45, 58] * 6 + [70, 100, 120] * 4 \
+    + [150, 200, 250] * 2 + [300, 397]
+# detector training: warm-up, timed and profiled steps; micro-batches of
+# the batch-32 step
+DET_WARMUP, DET_STEPS, DET_PROFILED = 2, 4, 2
+DET_ACCUM = 4
 
 
 def log(*args):
@@ -301,9 +344,10 @@ def phase_build():
     from findtextcenternet_tpu_torch.ops import kernels
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as ex:
+    with ThreadPoolExecutor(max_workers=4) as ex:
         futs = [ex.submit(kernels.build), ex.submit(native.build, "lineengine"),
-                ex.submit(native.build, "hostops")]
+                ex.submit(native.build, "hostops"),
+                ex.submit(native.build, "augment")]
         for f in futs:
             f.result()
     log(f"build: {time.perf_counter() - t0:.1f} s wall "
@@ -965,7 +1009,220 @@ def phase_main_path():
         torch.cuda.synchronize()
         turns.append((impl, (time.perf_counter() - t0) * 1e3))
     log(f"decode_windows in turns (ms): {json.dumps(turns)}")
+    results["bucketed"] = bucketed_page(pipe, cfg)
     return results
+
+
+def bucket_stream(feats, fdim: int, device="cuda"):
+    """``feats`` as the default path holds them: a FeatureStream whose
+    glyph-feature columns sit on the card in f16 (the columns of ``feats``
+    must be f16 values, so both streams decode the same numbers)."""
+    import torch
+
+    from findtextcenternet_tpu_torch.infer.pipeline import FeatureStream
+
+    stream = feats.copy().view(FeatureStream)
+    stream[:, :fdim] = 0.0
+    stream.glyph_idx = np.arange(len(feats), dtype=np.int64)
+    stream.glyph_dev = torch.from_numpy(
+        feats[:, :fdim].astype(np.float16)).to(device)
+    return stream
+
+
+def attention_calls(fn):
+    """Run ``fn`` with the attention wrapper's inputs recorded: the first
+    masked and the first unmasked call of every (B, Tq, Tk) shape, cloned,
+    keyed by (shape, masked)."""
+    from findtextcenternet_tpu_torch.ops import attention
+
+    seen, real = {}, attention.fused_attention
+
+    def record(q, k, v, key_mask=None):
+        key = (tuple(q.shape[:2]) + (k.shape[1],), key_mask is not None)
+        if key not in seen:
+            seen[key] = tuple(None if t is None else t.clone()
+                              for t in (q, k, v, key_mask))
+        return real(q, k, v, key_mask)
+
+    attention.fused_attention = record
+    try:
+        fn()
+    finally:
+        attention.fused_attention = real
+    return seen
+
+
+def bucket_rows(calls, per_len) -> dict:
+    """The kernels-line rows of the attention forward at the bucketed
+    page's own shapes: for each bucket length, its masked call (the group's
+    key lengths) held against the plain version and timed beside the
+    library call, with the launches of that group's own run; the group's
+    unmasked call (the decoder's self-attention) is held against the plain
+    version too."""
+    import torch
+    import torch.nn.functional as F
+
+    from findtextcenternet_tpu_torch.ops import attention
+
+    rows = {}
+    for (shape, masked), (q, k, v, mask) in sorted(calls.items()):
+        b, tq, tk = shape
+        got = attention.fused_attention(q, k, v, mask)
+        want = attention.attention_plain(q, k, v, mask)
+        torch.cuda.synchronize()
+        nan = torch.isnan(got)
+        if not torch.equal(nan, torch.isnan(want)):
+            raise AssertionError(f"attention bucket {shape}: NaN rows differ")
+        err = float((got - want).abs()[~nan].max())
+        log(f"attention_fwd float32 {(b, tq) + tuple(q.shape[2:])}, keys "
+            f"{tk}, bucketed page, {'masked' if masked else 'no mask'}: "
+            f"max_abs_err {err:.3g} (tolerance 1e-4; "
+            f"{gate_share(got[~nan], want[~nan], 1e-4, 0.0):.3g} of it at "
+            f"the worst element)")
+        if not err <= 1e-4:
+            raise AssertionError(f"attention kernel (bucket {shape}) "
+                                 f"disagrees: {err}")
+        if not masked:
+            continue
+        h, hd = q.shape[2:]
+        lengths = (mask.reshape(b, tk) == 0).sum(1).tolist()
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qh, kh, vh, attn_mask=mask)
+        kernel = lambda: attention.fused_attention(  # noqa: E731
+            q, k, v, mask)
+        flops = 4 * h * tq * hd * unmasked_keys(mask)
+        nbytes = (2 * b * tq + 2 * b * tk) * h * hd * 4 + b * tk * 4
+        rows[f"attention_bucket{tk}"] = {
+            "name": "attention_fwd", "route": "cuda",
+            "source": "findtextcenternet_tpu_torch/csrc/attention.cu",
+            "replaces": "findtextcenternet_tpu/ops/attention.py:59",
+            "launches": per_len[tk]["attention_fwd_launches"],
+            "max_abs_err": err,
+            "ms": device_ms(kernel, 50, "attention_fwd_kernel"),
+            "plain_ms": device_ms(
+                lambda: attention.attention_plain(q, k, v, mask), 50),
+            **attention_bounds(flops, nbytes, PEAK_SPLIT_TF32_FLOPS),
+            "library_ms": device_ms(library, 50),
+            "wall_ms": event_ms(kernel, 50),
+            "shape": [b, tq, h, hd], "dtype": "float32",
+            "path": "serving, decode_len_buckets",
+            "keys": f"{tk}, lengths {min(lengths)}-{max(lengths)}",
+        }
+        log(f"attention_bucket{tk}, reckoned from its inputs (not "
+            f"measured): {json.dumps(reckoned(mask, flops, nbytes))}")
+    missing = sorted(set(per_len) - {int(k[len('attention_bucket'):])
+                                     for k in rows})
+    if missing:
+        raise AssertionError(f"no masked attention call at lengths "
+                             f"{missing}")
+    return rows
+
+
+def bucketed_page(pipe, cfg) -> dict:
+    """``decode_len_buckets`` (64, 128, 256, 400) on a degenerate page of
+    many short windows (glyph counts BUCKET_WINDOW_GLYPHS, ruby columns 0),
+    on the default path's FeatureStream: each bucket's windows alone on the
+    fused route (decode ms and attention launches per length, the counts
+    reset just before each group), the attention kernel held against its
+    plain version at each group's own shapes, then the whole page with and
+    without buckets on both routes in turns. The fused and xla bucketed
+    texts must be equal, and equal to the host stream's. Returns the
+    counts of the fused bucketed page's run and the kernels-line rows of
+    each bucket length."""
+    import dataclasses
+
+    import torch
+
+    from findtextcenternet_tpu_torch.ops import attention
+
+    d = pipe.transformer.dims
+    fdim = d.enc_input_dim - 6
+    rng = np.random.default_rng(3)
+    feats = rng.standard_normal((sum(BUCKET_WINDOW_GLYPHS),
+                                 d.enc_input_dim)).astype(np.float16)
+    feats = feats.astype(np.float32)
+    feats[:, fdim:] = 0.0
+    stream = bucket_stream(feats, fdim)
+    windows, c = [], 0
+    for g in BUCKET_WINDOW_GLYPHS:
+        windows.append((0, c, c + g, 0))
+        c += g
+    by_len = {}
+    for w, g in zip(windows, BUCKET_WINDOW_GLYPHS):
+        need = max(g + 2, min(d.max_enc_seq_len, g + 3))
+        by_len.setdefault(next(b for b in BUCKETS if b >= need), []).append(w)
+    saved = pipe.cfg
+    bucketed = dataclasses.replace(cfg, inference=dataclasses.replace(
+        cfg.inference, decode_len_buckets=BUCKETS))
+
+    def decode(ws, buckets, impl, src=stream):
+        pipe.cfg = bucketed if buckets else cfg
+        pipe.transformer.set_attn_impl(impl)
+        torch.cuda.synchronize()
+        attention.launches.reset()
+        pipe.feature_gathers.reset()
+        t0 = time.perf_counter()
+        texts = pipe.decode_windows(src, ws)
+        torch.cuda.synchronize()
+        if (pipe.feature_gathers.count > 0) != (src is stream):
+            raise AssertionError("the FeatureStream did not gather on the "
+                                 "card" if src is stream else
+                                 "the host stream gathered")
+        return (time.perf_counter() - t0) * 1e3, attention.launches.count, \
+            texts
+
+    try:
+        decode(windows, True, "fused")                 # warm-up
+        per_len = {}
+        for s_len, ws in sorted(by_len.items()):
+            ms, n, _ = decode(ws, True, "fused")
+            per_len[s_len] = {"windows": len(ws), "decode_ms": ms,
+                              "attention_fwd_launches": n}
+        log(f"bucketed page: {len(windows)} windows of "
+            f"{sum(BUCKET_WINDOW_GLYPHS)} glyphs, buckets {BUCKETS}; each "
+            f"bucket alone, fused route: {json.dumps(per_len)}")
+        if any(v["attention_fwd_launches"] <= 0 for v in per_len.values()):
+            raise AssertionError("a bucket length did not reach the "
+                                 "attention kernel")
+        calls = attention_calls(lambda: decode(windows, True, "fused"))
+        log(f"bucketed page: attention calls by (B, Tq, Tk), masked: "
+            f"{sorted(calls)}")
+        rows = bucket_rows(calls, per_len)
+        turns, counts, texts = [], None, {}
+        for impl in ("xla", "fused", "fused", "xla"):
+            for buckets in (True, False):
+                ms, n, t = decode(windows, buckets, impl)
+                turns.append({"impl": impl, "buckets": buckets,
+                              "decode_ms": ms, "attention_fwd_launches": n})
+                texts[(impl, buckets)] = t
+                if (n > 0) != (impl == "fused"):
+                    raise AssertionError(f"[{impl}] attention launches {n}")
+                if impl == "fused" and buckets:
+                    counts = {"attention_fwd": n}
+        log(f"bucketed page in turns (ms per page decode): "
+            f"{json.dumps(turns)}")
+        for t in texts.values():
+            if len(t) != len(windows) or not all(isinstance(x, str)
+                                                 for x in t):
+                raise AssertionError("bucketed decode output malformed")
+        _, _, host = decode(windows, True, "fused", src=feats)
+        log(f"bucketed vs full-length texts equal: fused "
+            f"{texts[('fused', True)] == texts[('fused', False)]}, xla "
+            f"{texts[('xla', True)] == texts[('xla', False)]} (random "
+            f"weights; not required, as in JAX); bucketed texts xla == "
+            f"fused: {texts[('xla', True)] == texts[('fused', True)]}, "
+            f"FeatureStream == host stream (fused): "
+            f"{host == texts[('fused', True)]} (both required)")
+        if texts[("xla", True)] != texts[("fused", True)]:
+            raise AssertionError("bucketed page: xla and fused texts differ")
+        if host != texts[("fused", True)]:
+            raise AssertionError("bucketed page: the FeatureStream's texts "
+                                 "differ from the host stream's")
+    finally:
+        pipe.cfg = saved
+        pipe.transformer.set_attn_impl("xla")
+    return {"counts": counts, "rows": rows}
 
 
 def _kernel_share(prof, steps: int) -> dict:
@@ -1195,6 +1452,352 @@ def phase_training():
     return launches
 
 
+def detector_targets(rng, n: int, hw: int = 192, boxes: int = 250):
+    """``n`` (labelmap, idmap) pairs painted by the port's numpy target
+    painter from ``boxes`` random character boxes each (a dense page
+    crop), with line and separator planes."""
+    from findtextcenternet_tpu_torch.data.targets import make_target_maps
+    out = []
+    for _ in range(n):
+        pos = np.stack([rng.uniform(0, hw * 4, boxes),
+                        rng.uniform(0, hw * 4, boxes),
+                        rng.uniform(12, 60, boxes),
+                        rng.uniform(12, 60, boxes)], 1).astype(np.float32)
+        codes = np.stack([rng.integers(0x3041, 0x9FFF, boxes),
+                          rng.integers(0, 16, boxes)], 1).astype(np.int32)
+        keysize, idmap, _ = make_target_maps(pos, codes, (hw, hw))
+        planes = (rng.uniform(size=(hw, hw, 2)) > 0.8).astype(np.float32)
+        out.append((np.concatenate([keysize, planes], -1), idmap))
+    return out
+
+
+_FAMILIES = (
+    # (family, substrings of the kernel name), first match wins
+    ("conv_backward", ("dgrad", "wgrad", "conv_depthwise2d_backward",
+                       "conv_depthwise2d_grad_weight", "bwd_filter",
+                       "bwd_data")),
+    ("conv_forward", ("fprop", "conv_depthwise2d_forward", "convolve",
+                      "implicit_gemm", "conv")),
+    ("batch_norm", ("bn_", "batch_norm", "batchnorm", "welford")),
+    ("optimizer", ("multi_tensor_apply",)),
+    ("topk_sort", ("sort", "Sort", "radix", "topk")),
+    ("gather", ("index", "gather", "scatter")),
+    ("matmul", ("gemm", "Gemm", "cutlass", "sm90_")),
+    ("layout", ("nchwToNhwc", "nhwcToNchw", "transpose")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "reduce",
+                     "upsample", "copy", "fill")),
+)
+
+
+def detector_families(prof, steps: int):
+    """Device ms per step by kernel family, and the 15 kernels that take
+    the most time, from a profile of ``steps`` detector train steps."""
+    fams = {f: 0.0 for f, _ in _FAMILIES}
+    fams["other"] = 0.0
+    top = []
+    for ev in prof.key_averages():
+        t = ev.self_device_time_total / 1e3 / steps
+        if t <= 0:
+            continue
+        fam = next((f for f, keys in _FAMILIES
+                    if any(k in ev.key for k in keys)), "other")
+        fams[fam] += t
+        top.append((t, ev.count // steps, fam, ev.key[:90]))
+    top.sort(reverse=True)
+    return fams, [dict(ms=round(t, 4), calls=c, family=f, kernel=k)
+                  for t, c, f, k in top[:15]]
+
+
+def detector_step_flops(model, batch, fmask_k: int) -> dict:
+    """The step's convolution and dense-layer flops, counted by forward
+    hooks on one micro-batch's forward: 2 x MACs each; a step is the
+    forward, the weight gradients (the forward's flops again) and the input
+    gradients (again, less the stem's: the images need none)."""
+    import torch
+
+    from findtextcenternet_tpu_torch.models.detector import topk_fmask
+
+    counted = {"conv": 0, "dense": 0}
+    stem = model.detector.backbone.features[0][0]
+    stem_flops = []
+
+    def hook(mod, args, out):
+        if isinstance(mod, torch.nn.Conv2d):
+            k = mod.weight[0].numel()          # in/groups x kh x kw
+            f = 2 * out.numel() * k
+            counted["conv"] += f
+            if mod is stem:
+                stem_flops.append(f)
+        else:
+            counted["dense"] += 2 * (args[0].numel() // mod.in_features) \
+                * mod.in_features * mod.out_features
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            fidx = topk_fmask(batch["labelmap"][..., 0], fmask_k)
+            was = model.training
+            model.eval()
+            model(batch["image"], fidx)
+            model.train(was)
+    finally:
+        for h in hooks:
+            h.remove()
+    fwd = counted["conv"] + counted["dense"]
+    return {"forward_flops": fwd, "conv_forward_flops": counted["conv"],
+            "dense_forward_flops": counted["dense"],
+            "step_flops": 3 * fwd - stem_flops[0]}
+
+
+def phase_detector_training():
+    """train1's full-width step on the card (``Config()`` as train1 builds
+    it: the xl detector, feature_dim 100, decoder_mid 2048, head_conv 192,
+    fmask 1024 an image, 768² images, batch 32, schedule-free AdamW at lr
+    2.5e-3 with 1000 warm-up steps, bf16 autocast over f32 parameters and
+    f32 losses), on synthetic batches on the card, as 4 micro-batches of 8
+    (the reference's setting; it fits, and running out of memory fails the
+    run). Returns the state for the loader phase, the batches and the
+    results."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from findtextcenternet_tpu_torch.config import Config
+    from findtextcenternet_tpu_torch.train.steps import (
+        detector_batch_to_device, detector_train_step)
+    from findtextcenternet_tpu_torch.train.train1 import (
+        build_detector_state)
+
+    cfg = Config()
+    det, tc = cfg.detector, cfg.train
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True      # as train1 runs on the card
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    targets = detector_targets(rng, 8, det.map_size[0])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batches = []
+    for i in range(3):
+        pick = rng.integers(0, len(targets), tc.batch_size)
+        batches.append(detector_batch_to_device({
+            "image": torch.rand((tc.batch_size, *det.image_size, 3),
+                                generator=gen, device="cuda"),
+            "labelmap": np.stack([targets[j][0] for j in pick]),
+            "idmap": np.stack([targets[j][1] for j in pick])}, "cuda"))
+    log(f"detector training: 3 synthetic batches of {tc.batch_size} at "
+        f"{det.image_size} with targets from the port's painter (250 boxes "
+        f"an image), on the card in {time.perf_counter() - t0:.1f} s (not "
+        f"timed below)")
+
+    def run(accum: int):
+        c = dataclasses.replace(
+            cfg, train=dataclasses.replace(tc, accum_steps=accum))
+        t1 = time.perf_counter()
+        model, state = build_detector_state(c, seed=0, device="cuda")
+        n_params = sum(p.numel() for p in state.optimizer.params.values())
+        log(f"detector training [{accum} x {tc.batch_size // accum}]: "
+            f"{det.model_size} TextDetectorModel, {n_params} parameters, "
+            f"built in {time.perf_counter() - t1:.1f} s")
+
+        def step(i):
+            return detector_train_step(
+                state, batches[i % len(batches)],
+                fmask_k=det.fmask_topk_per_sample, accum_steps=accum,
+                dropout_seed=tc.seed)
+
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        for i in range(DET_WARMUP):
+            step(i)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t1
+        watch = {n: state.optimizer.params[n].detach().clone() for n in (
+            "detector.backbone.features.0.0.weight",
+            "detector.keyheatmap.top_conv.0.weight",
+            "decoder.blocks.0.0.weight")}
+        losses = []
+        t1 = time.perf_counter()
+        for i in range(DET_STEPS):
+            _, m = step(i)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) / DET_STEPS * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(x) for x in losses]
+        moved = {n: float((state.optimizer.params[n].detach() - w).abs()
+                          .max()) for n, w in watch.items()}
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"detector loss not finite: {losses}")
+        if not all(v > 0 for v in moved.values()):
+            raise AssertionError(f"detector training did not move: {moved}")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for i in range(DET_PROFILED):
+                step(i)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t1) / DET_PROFILED * 1e3
+        fams, top = detector_families(prof, DET_PROFILED)
+        busy = sum(fams.values())
+        work = detector_step_flops(
+            model, {k: v[:tc.batch_size // accum]
+                    for k, v in batches[0].items()},
+            det.fmask_topk_per_sample)
+        step_flops = work["step_flops"] * accum
+        res = dict(accum=accum, micro_batch=tc.batch_size // accum,
+                   warmup_s=warm, steps=DET_STEPS,
+                   ms_per_step=ms, images_per_s=tc.batch_size / ms * 1e3,
+                   max_memory_allocated=peak, loss=losses,
+                   param_max_abs_change=moved, device_busy_ms_per_step=busy,
+                   device_idle_share=1 - busy / ms,
+                   profiled_ms_per_step=prof_ms, device_ms_by_family=fams,
+                   step_flops=step_flops,
+                   conv_forward_flops_per_micro=work["conv_forward_flops"],
+                   dense_forward_flops_per_micro=work["dense_forward_flops"],
+                   achieved_tflops=step_flops / ms / 1e9,
+                   share_of_h100_sxm_dense_bf16_989_tflops=(
+                       step_flops / (ms / 1e3) / PEAK_BF16_FLOPS))
+        log(f"detector training [{accum} x {tc.batch_size // accum}]: "
+            f"{json.dumps(res)}")
+        log(f"detector training [{accum} x {tc.batch_size // accum}] top "
+            f"kernels (device ms per step): {json.dumps(top)}")
+        return model, state, res
+
+    results = {}
+    _, state, results["accum4"] = run(DET_ACCUM)
+    torch.backends.cudnn.benchmark = bench
+    return state, batches, results
+
+
+def phase_detector_whole_batch(results, batches):
+    """The batch of 32 in one micro-batch, for its peak memory and step time
+    beside 4 x 8 (it may not fit the card: then its peak before the
+    failure is reported). A one-off measurement, run only with
+    ``--whole-batch``: it builds a second xl state and fills the card."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from findtextcenternet_tpu_torch.config import Config
+    from findtextcenternet_tpu_torch.train.steps import detector_train_step
+    from findtextcenternet_tpu_torch.train.train1 import (
+        build_detector_state)
+
+    cfg = Config()
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    torch.cuda.reset_peak_memory_stats()
+    model = state = None
+    try:
+        k = cfg.detector.fmask_topk_per_sample
+        model, state = build_detector_state(cfg, seed=0, device="cuda")
+        for i in range(DET_WARMUP):
+            detector_train_step(state, batches[i], fmask_k=k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(DET_STEPS):
+            _, m = detector_train_step(state, batches[i % len(batches)],
+                                       fmask_k=k)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / DET_STEPS * 1e3
+        res = dict(accum=1, micro_batch=32, fits=True, ms_per_step=ms,
+                   images_per_s=32 / ms * 1e3, loss=float(m["loss"]),
+                   max_memory_allocated=torch.cuda.max_memory_allocated())
+    except torch.cuda.OutOfMemoryError as e:
+        res = dict(accum=1, micro_batch=32, fits=False,
+                   max_memory_allocated_before_failure=(
+                       torch.cuda.max_memory_allocated()),
+                   error=str(e).splitlines()[0][:200])
+    finally:
+        del model, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.backends.cudnn.benchmark = bench
+    results["whole32"] = res
+    log(f"detector training [1 x 32]: {json.dumps(res)}")
+    a = results["accum4"]
+    log(f"detector training peak memory: 4 x 8 "
+        f"{a['max_memory_allocated'] / 2**30:.2f} GiB, 1 x 32 "
+        + (f"{res['max_memory_allocated'] / 2**30:.2f} GiB" if res["fits"]
+           else "does not fit (peak before the failure "
+           f"{res['max_memory_allocated_before_failure'] / 2**30:.2f} GiB)"))
+
+
+def phase_detector_loader(state):
+    """Two synthetic shards written by the port's ShardWriter (``.npy``
+    members, so no image codec is needed), read by DetectorLoader's spawned
+    workers (the native augmenter) into batches of 32 at 768²; the loader's
+    images/s on the host, and one train step on the card with its batch."""
+    import shutil
+
+    import torch
+
+    from findtextcenternet_tpu_torch.data.loader import DetectorLoader
+    from findtextcenternet_tpu_torch.data.shards import ShardWriter
+    from findtextcenternet_tpu_torch.train.steps import detector_train_step
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "findtextcenternet_tpu_torch", "build",
+                        "smoke_shards")
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(5)
+    h, w, n = 1200, 900, 300
+    t0 = time.perf_counter()
+    with ShardWriter(os.path.join(root, "train%03d.tar"), 32) as wr:
+        for i in range(64):
+            img = np.full((h, w), 235, np.uint8)
+            cx, cy = rng.uniform(30, w - 30, n), rng.uniform(30, h - 30, n)
+            size = rng.uniform(14, 40, n)
+            for x, y, s in zip(cx.astype(int), cy.astype(int),
+                               size.astype(int)):
+                img[y - s // 2:y + s // 2, x - s // 2:x + s // 2] = 30
+            wr.write({"__key__": f"p{i:04d}", "image.npy": img,
+                      "textline.npy": np.zeros((h // 2, w // 2), np.uint8),
+                      "sepline.npy": np.zeros((h // 2, w // 2), np.uint8),
+                      "position.npy": np.stack([cx, cy, size, size],
+                                               1).astype(np.float32),
+                      "code_list.npy": np.stack([
+                          rng.integers(0x3041, 0x9FFF, n),
+                          rng.integers(0, 16, n)], 1).astype(np.int32)})
+        paths = list(wr.paths)
+    log(f"loader: {len(paths)} shards of 32 pages {w}x{h} ({n} boxes a "
+        f"page) written in {time.perf_counter() - t0:.1f} s")
+    workers = 4
+    loader = DetectorLoader(paths, 32, num_workers=workers, seed=0,
+                            repeat=False, out_hw=(768, 768))
+    it = iter(loader)
+    try:
+        t0 = time.perf_counter()
+        first = next(it)
+        t1 = time.perf_counter()
+        second = next(it)
+        t2 = time.perf_counter()
+    finally:
+        it.close()
+        shutil.rmtree(root, ignore_errors=True)
+    shapes = {k: list(v.shape) for k, v in first.items()}
+    if shapes != {"image": [32, 768, 768, 3], "labelmap": [32, 192, 192, 5],
+                  "idmap": [32, 192, 192, 2]}:
+        raise AssertionError(f"loader batch shapes {shapes}")
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    _, m = detector_train_step(state, second, fmask_k=1024,
+                               accum_steps=DET_ACCUM)
+    loss = float(m["loss"])
+    step_ms = (time.perf_counter() - t3) * 1e3
+    if not np.isfinite(loss):
+        raise AssertionError(f"loader batch step loss {loss}")
+    res = dict(workers=workers, first_batch_s=t1 - t0,
+               second_batch_s=t2 - t1,
+               images_per_s_second_batch=32 / (t2 - t1),
+               images_per_s_both=64 / (t2 - t0), step_ms_with_upload=step_ms,
+               loss=loss, keys_max=float(second["labelmap"][..., 0].max()))
+    log(f"loader -> card: {json.dumps(res)}")
+    return res
+
+
 def device_path_reference():
     """The tiny model's default path (device page merge, device features)
     against its host-merge, host-feature path on the card, bit for bit, on
@@ -1302,16 +1905,72 @@ def phase_reference():
         f"plain on CPU) code agreement {agree:.4f} (required 1.0)")
     if agree != 1.0:
         raise AssertionError("tiny Transformer GPU/CPU codes differ")
+    bucketed_reference()
+
+
+def bucketed_reference():
+    """decode_len_buckets on the card (fused route) against the same
+    pipeline on the CPU: a tiny Transformer (head width 8), buckets 8 and
+    24 (multiples of 8: the attention kernel) and 12 (the einsum path), on
+    the host stream and on a FeatureStream (the default path's device
+    gather); the texts must be equal."""
+    import dataclasses
+
+    from findtextcenternet_tpu_torch.config import Config
+    from findtextcenternet_tpu_torch.infer.pipeline import OCRPipeline
+    from findtextcenternet_tpu_torch.ops import attention
+
+    cfg = Config()
+    cfg = dataclasses.replace(
+        cfg, transformer=dataclasses.replace(
+            cfg.transformer, embed_dim=32, head_num=4, enc_block_num=1,
+            dec_block_num=1, max_enc_seq_len=24, max_dec_seq_len=24),
+        inference=dataclasses.replace(
+            cfg.inference, decode_attention="fused",
+            decode_len_buckets=(8, 12, 24)),
+        mask_predict=dataclasses.replace(cfg.mask_predict, max_rounds=3))
+    rng = np.random.default_rng(7)
+    # f16 values, as the detector leaves them on the card
+    feats = rng.standard_normal((60, 106)).astype(np.float16)
+    feats = feats.astype(np.float32)
+    feats[:, -6:] = 0.0
+    windows = [(0, 0, 3, 0), (0, 3, 7, 0), (0, 7, 15, 0), (0, 15, 37, 0),
+               (0, 37, 59, 0)]
+    cpu = OCRPipeline(cfg, model_size="tiny", device="cpu")
+    gpu = OCRPipeline(cfg, transformer_state=cpu.transformer.state_dict(),
+                      model_size="tiny")
+    want = cpu.decode_windows(feats, windows)
+    for name, src in (("host stream", feats),
+                      ("FeatureStream", bucket_stream(feats, 100))):
+        attention.launches.reset()
+        gpu.feature_gathers.reset()
+        got = gpu.decode_windows(src, windows)
+        n, gathers = attention.launches.count, gpu.feature_gathers.count
+        log(f"reference: tiny bucketed decode (buckets 8/12/24) on the card, "
+            f"{name} ({n} attention kernel launches, {gathers} feature "
+            f"gathers) == CPU: {got == want}; texts {got}")
+        if got != want or n <= 0:
+            raise AssertionError(f"tiny bucketed decode GPU/CPU differ "
+                                 f"({name})")
+        if (gathers > 0) != (name == "FeatureStream"):
+            raise AssertionError(f"{name}: {gathers} feature gathers")
 
 
 def main() -> int:
     t_start = time.perf_counter()
+    whole_batch = "--whole-batch" in sys.argv[1:]
     smi = phase_environment()
     import torch
     phase_build()
     rows = phase_kernels()
     results = phase_main_path()
     train_launches = phase_training()
+    state, batches, det = phase_detector_training()
+    phase_detector_loader(state)
+    del state
+    if whole_batch:
+        phase_detector_whole_batch(det, batches)
+    del batches
     phase_reference()
     launches = results["fused"]["launches"]
     kernels_line = []
@@ -1323,6 +1982,7 @@ def main() -> int:
         r = dict(rows[key])
         r["launches"] = counts[r["name"]]
         kernels_line.append(r)
+    kernels_line[4:4] = results["bucketed"]["rows"].values()
     extra = dict(rows["attention_bfloat16"])
     log(f"attention_fwd bf16 (not on the default f32 decode path): "
         f"{json.dumps(extra)}")

@@ -9,10 +9,9 @@ default, as in JAX: :func:`resolve_attn_impl` makes it ``"fused"`` on a
 CUDA device and ``"xla"`` on the CPU); ``InferenceConfig.decode_attention``
 accepts only ``"xla"`` or ``"fused"``. Both raise on anything else.
 
-Every inference path of the JAX config is ported (the device page merge
-and device-resident glyph features, on by default, and the host-merge,
-host-feature path with both off) except ``decode_len_buckets``: the
-pipeline raises ``NotImplementedError`` when it is set.
+Every inference path of the JAX config is ported: the device page merge
+and device-resident glyph features, on by default, the host-merge,
+host-feature path with both off, and ``decode_len_buckets``.
 """
 from __future__ import annotations
 
@@ -128,7 +127,9 @@ class InferenceConfig:
     decode_attention: str = "xla"
     # cap on decode windows per transformer call
     decode_max_batch: int = 64
-    # decode sequence-length buckets: not ported yet (must stay empty)
+    # decode sequence-length buckets, ascending (e.g. (64, 128, 256, 400)):
+    # each window decodes at the smallest that holds it; () = always the
+    # full length, the exact-parity default
     decode_len_buckets: Tuple[int, ...] = ()
     # 0 = unbounded (reference behaviour); N re-splits degenerate pages
     max_windows_per_page: int = 0

@@ -1,7 +1,8 @@
-"""Build the native host libraries (line engine, host ops) at first use.
+"""Build the native host libraries (line engine, host ops, the training
+augmenter) at first use.
 
-The sources are the repository's ``native/lineengine/src`` and
-``native/hostops/src``; the shared libraries go to the port's own
+The sources are the repository's ``native/lineengine/src``,
+``native/hostops/src`` and ``native/augment``; the shared libraries go to the port's own
 ``build/native/`` (listed in ``.gitignore``), named by a hash of the
 sources, the compiler's version and the C library (:mod:`..shlib`). Each
 source compiles in its own ``g++`` process (all started together) with the
@@ -35,6 +36,7 @@ LIBRARIES: Dict[str, Tuple[str, Tuple[str, ...], Tuple[str, ...]]] = {
                     "capi.cpp"),
                    ("engine.h", "types.h", "lm.h")),
     "hostops": ("hostops/src", ("hostops.cpp",), ()),
+    "augment": ("augment", ("augment.cpp",), ()),
 }
 
 _lock = threading.Lock()

@@ -25,12 +25,13 @@ Counterpart of ``findtextcenternet_tpu/infer/pipeline.py``:
 
 The default path and the host-merge, host-feature path
 (``fused_page_merge=False, device_features=False``) are bit-exact with
-each other. ``decode_len_buckets`` is not ported yet and raises
-``NotImplementedError``; mesh serving is not ported either (ROADMAP.md).
+each other. ``decode_len_buckets`` groups the windows by decode length, as
+in JAX. Mesh serving is not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import logging
 from typing import Callable, Dict, List, Optional, Tuple
@@ -291,9 +292,6 @@ class OCRPipeline:
         what the device path did.
         """
         ic = config.inference
-        if ic.decode_len_buckets:
-            raise NotImplementedError(
-                "decode_len_buckets is not ported yet (ROADMAP.md)")
         self.cfg = config
         self.device = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
@@ -326,10 +324,10 @@ class OCRPipeline:
         mp = config.mask_predict
         self._apply_fn = detector_apply or self.detector
         self._live_decode = decode_fn is None
-        self._decode = decode_fn or (lambda enc_input: mask_predict(
-            self.transformer, enc_input, max_rounds=mp.max_rounds,
+        self._decode = decode_fn or functools.partial(
+            mask_predict, self.transformer, max_rounds=mp.max_rounds,
             topk=mp.topk, remask_threshold=mp.remask_threshold,
-            early_stop_threshold=mp.early_stop_threshold))
+            early_stop_threshold=mp.early_stop_threshold)
         self.mosaic_merges = LaunchCounter("mosaic_merges")
         self.feature_gathers = LaunchCounter("feature_gathers")
         self.readback_bytes = LaunchCounter("readback_bytes")
@@ -982,7 +980,13 @@ class OCRPipeline:
         each batch and its glyph rows are gathered on the device
         (:meth:`_gather_features`): bit-exact with the host stream, since
         the f16 buffer is the detector output the host path reads back and
-        the f16-to-f32 cast commutes with the gather."""
+        the f16-to-f32 cast commutes with the gather.
+
+        With ``decode_len_buckets`` each window decodes at the smallest
+        bucket that holds its content plus the estimated ruby expansion
+        (capped at the encoder length), groups in ascending length; the
+        live model decodes ``dec_len=s_len`` below the production length
+        (a ``decode_fn`` hook always decodes at its own length)."""
         if not windows:
             return []
         gidx = getattr(features, "glyph_idx", None)
@@ -1001,36 +1005,51 @@ class OCRPipeline:
         sp = np.zeros(enc_dim, np.float32)
         sp[0:fdim:2] = 5
         sp[1:fdim:2] = -5
-        s_len = dims.max_enc_seq_len
+        enc_len = dims.max_enc_seq_len
+        buckets = tuple(sorted(self.cfg.inference.decode_len_buckets))
         cap = max(1, int(self.cfg.inference.decode_max_batch))
 
-        idxs = list(range(len(windows)))
+        groups: Dict[int, List[int]] = {}
+        for wi, (_, ci, cj, _) in enumerate(windows):
+            s_len = enc_len
+            if buckets:
+                r = self._ruby_expansion(features, ci, cj)
+                need = max(cj - ci + 2, min(enc_len, cj - ci + r + 3))
+                s_len = next((min(b, enc_len) for b in buckets
+                              if b >= need), enc_len)
+            groups.setdefault(s_len, []).append(wi)
+
         pending = []
-        for c0 in range(0, len(idxs), cap):
-            chunk = idxs[c0:c0 + cap]
-            cn = len(chunk)
-            bucket = 1
-            while bucket < cn:
-                bucket *= 2
-            batch = np.zeros((bucket, s_len, enc_dim), np.float32)
-            idxb = np.full((bucket, s_len), -1, np.int32)
-            for bi, wi in enumerate(chunk):
-                _, ci, cj, _ = windows[wi]
-                batch[bi, 0] = sp
-                batch[bi, 1:1 + cj - ci] = features[ci:cj]
-                batch[bi, 1 + cj - ci] = -sp
+        for s_len, idxs in sorted(groups.items()):
+            for c0 in range(0, len(idxs), cap):
+                chunk = idxs[c0:c0 + cap]
+                cn = len(chunk)
+                bucket = 1
+                while bucket < cn:
+                    bucket *= 2
+                batch = np.zeros((bucket, s_len, enc_dim), np.float32)
+                idxb = np.full((bucket, s_len), -1, np.int32)
+                for bi, wi in enumerate(chunk):
+                    _, ci, cj, _ = windows[wi]
+                    batch[bi, 0] = sp
+                    batch[bi, 1:1 + cj - ci] = features[ci:cj]
+                    batch[bi, 1 + cj - ci] = -sp
+                    if lazy:
+                        idxb[bi, 1:1 + cj - ci] = gidx[ci:cj]
+                # padding rows copy the first window: a fully-masked
+                # encoder row would NaN its attention and defeat the early
+                # exit
+                batch[cn:] = batch[0]
+                idxb[cn:] = idxb[0]
+                enc = self._upload(batch)
                 if lazy:
-                    idxb[bi, 1:1 + cj - ci] = gidx[ci:cj]
-            # padding rows copy the first window: a fully-masked encoder
-            # row would NaN its attention and defeat the early exit
-            batch[cn:] = batch[0]
-            idxb[cn:] = idxb[0]
-            enc = self._upload(batch)
-            if lazy:
-                enc = self._gather_features(enc, features.glyph_dev,
-                                            self._upload(idxb))
-            chunk_codes, _ = self._decode(enc)
-            pending.append((chunk, self._readback(chunk_codes)))
+                    enc = self._gather_features(enc, features.glyph_dev,
+                                                self._upload(idxb))
+                if self._live_decode and s_len < dims.max_dec_seq_len:
+                    chunk_codes, _ = self._decode(enc, dec_len=s_len)
+                else:
+                    chunk_codes, _ = self._decode(enc)
+                pending.append((chunk, self._readback(chunk_codes)))
 
         texts: List[str] = [""] * len(windows)
         for chunk, chunk_codes in pending:

@@ -16,10 +16,14 @@ BatchNorm ``scale/bias/mean/var`` -> ``weight/bias/running_mean/
 running_var`` (+ ``num_batches_tracked`` = 0); LayerNorm ``scale/bias`` ->
 ``weight/bias``; Embed ``embedding`` -> ``weight``.
 
-The same key schedule carries any tree shaped like the Transformer's
-parameters: a gradient tree, or the per-parameter buffers of the JAX
-package's schedule-free RAdam state (:func:`schedule_free_state_from_optax`),
-whose elementwise updates commute with the transposes.
+The same key schedule carries any tree shaped like a model's parameters
+(``batch_stats`` left out: the result is keyed like the optimizer's
+parameters): a gradient tree, or the per-parameter buffers of the JAX
+package's optax states (:func:`schedule_free_state_from_optax`,
+:func:`schedule_free_adamw_state_from_optax`), whose elementwise updates
+commute with the transposes. :func:`detector_train_state_from_jax` turns a
+whole JAX stage-1 ``TrainState`` (as numpy) into the port's, so a JAX run
+continues in the port.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import numpy as np
 import torch
 
 from ..const import MODULO_LIST
+from ..losses import CoVState
 from ..models.detector import HEADS
 from ..models.efficientnet import EFFNET_V2_CONFIGS
 from ..models.transformer import TransformerDims
@@ -59,6 +64,8 @@ class _Sink:
     def bn(self, key, path):
         self._put(key + ".weight", self._get(self.params, path + ("scale",)))
         self._put(key + ".bias", self._get(self.params, path + ("bias",)))
+        if self.stats is None:      # a parameter-shaped tree
+            return
         self._put(key + ".running_mean",
                   self._get(self.stats, path + ("mean",)))
         self._put(key + ".running_var",
@@ -113,16 +120,46 @@ def _leafmap(s: _Sink, key: str, fname: str):
     s.conv(f"{key}.top_conv.0", (fname, "top_conv"), bias=True)
 
 
+def _detector(s: _Sink, model_size: str):
+    _backbone(s, model_size)
+    for key, fname, _ in HEADS:
+        _leafmap(s, key, fname)
+    _leafmap(s, "feature", "feature")
+
+
 def detector_state_from_flax(variables: dict, model_size: str = "xl"
                              ) -> Dict[str, torch.Tensor]:
     """State dict of the port's ``CenterNetDetection`` from the variables
     of the JAX ``CenterNetDetection`` (per-head Leafmap layout)."""
     s = _Sink(variables["params"], variables["batch_stats"])
-    _backbone(s, model_size)
-    for key, fname, _ in HEADS:
-        _leafmap(s, key, fname)
-    _leafmap(s, "feature", "feature")
+    _detector(s, model_size)
     return s.sd
+
+
+def text_detector_state_from_flax(variables: dict, model_size: str = "xl"
+                                  ) -> Dict[str, torch.Tensor]:
+    """State dict of the port's ``TextDetectorModel`` (keys ``detector.*``
+    and ``decoder.*``, as ``io.torch_export.export_detector_sd`` writes
+    them) from the JAX ``TextDetectorModel``'s variables. A bare tree
+    shaped like its parameters (no ``batch_stats``) gives the parameter
+    entries only."""
+    params = variables.get("params", variables)
+    stats = variables.get("batch_stats") if "params" in variables else None
+    sd = {}
+    for prefix in ("detector", "decoder"):
+        s = _Sink(params[prefix], None if stats is None else stats[prefix])
+        if prefix == "detector":
+            _detector(s, model_size)
+        else:
+            for bi in range(len(MODULO_LIST)):
+                t = f"blocks.{bi}"
+                s.linear(f"{t}.0", (f"block{bi}_fc0",), bias=False)
+                s.bn(f"{t}.1", (f"block{bi}_bn0",))
+                s.linear(f"{t}.3", (f"block{bi}_fc1",), bias=False)
+                s.bn(f"{t}.4", (f"block{bi}_bn1",))
+                s.linear(f"{t}.6", (f"block{bi}_out",))
+        sd.update({f"{prefix}.{k}": v for k, v in s.sd.items()})
+    return sd
 
 
 def _mha(s: _Sink, key: str, path, cross: bool, key_tables: bool):
@@ -201,3 +238,47 @@ def schedule_free_state_from_optax(opt_state, dims: TransformerDims
             "step_count": int(np.asarray(opt_state.step_count)),
             "weight_sum": float(np.asarray(opt_state.weight_sum)),
             "max_lr": float(np.asarray(opt_state.max_lr))}
+
+
+def schedule_free_adamw_state_from_optax(opt_state, model_size: str = "xl"
+                                         ) -> dict:
+    """The port's ``ScheduleFreeAdamW.state_dict()`` from the JAX package's
+    ``optax.contrib.schedule_free_adamw`` state of a ``TextDetectorModel``
+    (arrays as numpy): ``z`` and ``scale_by_rms``'s ``nu`` by parameter
+    name, its ``count`` (the schedule's count is the same number),
+    ``weight_sum``, ``max_lr`` and ``step_count``. Read by attribute, so
+    optax is not imported."""
+    rms = opt_state.base_optimizer_state[0]
+
+    def tree(t):
+        return text_detector_state_from_flax(t, model_size)
+
+    return {"z": tree(opt_state.z), "nu": tree(rms.nu),
+            "count": int(np.asarray(rms.count)),
+            "step_count": int(np.asarray(opt_state.step_count)),
+            "weight_sum": float(np.asarray(opt_state.weight_sum)),
+            "max_lr": float(np.asarray(opt_state.max_lr))}
+
+
+def cov_state_from_jax(cov) -> CoVState:
+    """The port's ``CoVState`` from the JAX package's (read by attribute)."""
+    return CoVState(t=torch.tensor(int(np.asarray(cov.t)), dtype=torch.int32),
+                    **{k: torch.from_numpy(np.array(getattr(cov, k),
+                                                    dtype=np.float32))
+                       for k in ("mean_L", "mean_l", "S_l")})
+
+
+def detector_train_state_from_jax(jstate, state, model_size: str = "xl"):
+    """Load a JAX stage-1 ``TrainState`` (its arrays as numpy: params,
+    batch_stats, the schedule-free AdamW state, CoV, step) into the port's
+    ``TrainState`` ``state`` of a ``TextDetectorModel``, in place; the
+    next port step then takes the step JAX would."""
+    dev = next(state.model.parameters()).device
+    state.model.load_state_dict(text_detector_state_from_flax(
+        {"params": jstate.params, "batch_stats": jstate.batch_stats},
+        model_size))
+    state.optimizer.load_state_dict(
+        schedule_free_adamw_state_from_optax(jstate.opt_state, model_size))
+    state.cov = cov_state_from_jax(jstate.cov).to(dev)
+    state.step = int(np.asarray(jstate.step))
+    return state

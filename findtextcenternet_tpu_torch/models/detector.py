@@ -1,21 +1,26 @@
 """CenterNet-style text detector: backbone + 9 map heads + feature head.
 
-Counterpart of ``CenterNetDetection`` / ``Leafmap`` in
-``findtextcenternet_tpu/models/detector.py`` (eval mode, per-head
-Leafmaps). NCHW inside; the public boundary is NHWC like the JAX module:
-``(B,H,W,3)`` in [0,1] in, ``(B,H/4,W/4,9)`` heatmap and ``(B,H/4,W/4,F)``
-features out. Module names follow the upstream checkpoint keys (the
-separator head is ``sepatator``, the upstream spelling).
+Counterpart of ``CenterNetDetection`` / ``Leafmap`` (per-head Leafmaps),
+``SimpleDecoder``, ``topk_fmask`` and ``TextDetectorModel`` in
+``findtextcenternet_tpu/models/detector.py``. NCHW inside; the public
+boundary is NHWC like the JAX module: ``(B,H,W,3)`` in [0,1] in,
+``(B,H/4,W/4,9)`` heatmap and ``(B,H/4,W/4,F)`` features out. Module names
+follow the upstream checkpoint keys (the separator head is ``sepatator``,
+the upstream spelling; the training wrapper's are ``detector.*`` and
+``decoder.*``). BatchNorms keep flax's running variance
+(:mod:`.batchnorm`); ``remat`` recomputes each head in the backward pass,
+as the backbone's blocks.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
 import torch
 from torch import nn
 
-from ..const import FEATURE_DIM
+from ..const import FEATURE_DIM, MODULO_LIST
 from ..ops.resize import upsample2x
+from .batchnorm import BatchNorm1d, BatchNorm2d, remat
 from .efficientnet import TAP_CHANNELS, EfficientNetV2
 
 # (module name, JAX head name, output channels), in heatmap channel order
@@ -41,13 +46,13 @@ class Leafmap(nn.Module):
         super().__init__()
         n = len(tap_channels)
         self.in_bn = nn.ModuleList(
-            nn.BatchNorm2d(c, eps=bn_eps) for c in tap_channels)
+            BatchNorm2d(c, eps=bn_eps) for c in tap_channels)
         ups = []
         for i in range(n):
             cin = tap_channels[n - 1 - i] + (conv_dim if i else 0)
             ups.append(nn.Sequential(
                 nn.Conv2d(cin, conv_dim, 3, padding=1, bias=False),
-                nn.BatchNorm2d(conv_dim, eps=bn_eps),
+                BatchNorm2d(conv_dim, eps=bn_eps),
                 nn.GELU(approximate="none")))
         self.upsamplers = nn.ModuleList(ups)
         self.top_conv = nn.Sequential(
@@ -78,12 +83,14 @@ class CenterNetDetection(nn.Module):
     def __init__(self, model_size: str = "xl",
                  feature_dim: int = FEATURE_DIM,
                  bn_eps_backbone: float = 1e-3, bn_eps_head: float = 1e-5,
-                 head_conv_dim: int = 192):
+                 head_conv_dim: int = 192, remat: bool = False):
         super().__init__()
         self.model_size = model_size
         self.feature_dim = feature_dim
+        self.remat = remat
         taps = TAP_CHANNELS[model_size]
-        self.backbone = EfficientNetV2(model_size, bn_eps=bn_eps_backbone)
+        self.backbone = EfficientNetV2(model_size, bn_eps=bn_eps_backbone,
+                                       remat=remat)
         for name, _, dim in HEADS:
             setattr(self, name, Leafmap(taps, dim, head_conv_dim,
                                         bn_eps_head))
@@ -93,8 +100,71 @@ class CenterNetDetection(nn.Module):
         x = images.permute(0, 3, 1, 2) * 2.0 - 1.0
         x = x.to(self.backbone.features[0][0].weight.dtype)
         taps = self.backbone(x)
-        heatmap = torch.cat([getattr(self, name)(taps)
+        heatmap = torch.cat([self._head(getattr(self, name), taps)
                              for name, _, _ in HEADS], dim=1)
-        features = self.feature(taps)
+        features = self._head(self.feature, taps)
         return (heatmap.permute(0, 2, 3, 1).contiguous(),
                 features.permute(0, 2, 3, 1).contiguous())
+
+    def _head(self, head: Leafmap, taps):
+        # under remat the head cascades recompute in the backward pass too:
+        # dense 3x3 convs at 1/4 scale hold more activation memory than the
+        # whole backbone
+        if self.remat and self.training and torch.is_grad_enabled():
+            return remat(lambda *t: head(t), *taps)
+        return head(taps)
+
+
+class SimpleDecoder(nn.Module):
+    """3 parallel MLP classifiers, one per CRT modulus: Linear (no bias) ->
+    BN -> exact GELU, twice, then a Linear with bias
+    (``blocks.{k}.{0,1,3,4,6}``, the upstream keys)."""
+
+    def __init__(self, feature_dim: int = FEATURE_DIM, mid_dim: int = 2048):
+        super().__init__()
+        self.blocks = nn.ModuleList(nn.Sequential(
+            nn.Linear(feature_dim, mid_dim, bias=False),
+            BatchNorm1d(mid_dim, eps=1e-5), nn.GELU(approximate="none"),
+            nn.Linear(mid_dim, mid_dim, bias=False),
+            BatchNorm1d(mid_dim, eps=1e-5), nn.GELU(approximate="none"),
+            nn.Linear(mid_dim, m)) for m in MODULO_LIST)
+
+    def forward(self, x) -> List[torch.Tensor]:
+        return [b(x) for b in self.blocks]
+
+
+def topk_fmask(keymap: torch.Tensor, k_per_sample: int = 1024
+               ) -> torch.Tensor:
+    """Flat indices of the ``k_per_sample * B`` largest GT-keymap pixels of
+    the batch, into the ``[B*H*W]`` pixel axis (NHWC order), largest first.
+
+    Equal to ``jax.lax.top_k`` bit for bit: among equal values the lower
+    index comes first. ``torch.topk`` promises no order on ties, and a GT
+    keymap is mostly exact zeros, so a page with fewer characters than
+    ``k_per_sample`` would select other zero pixels (and give the
+    SimpleDecoder other batch statistics); a stable descending sort keeps
+    index order among ties on the CPU and on the card."""
+    flat = keymap.reshape(-1)
+    k = k_per_sample * keymap.shape[0]
+    return torch.sort(flat, descending=True, stable=True).indices[:k]
+
+
+class TextDetectorModel(nn.Module):
+    """Training wrapper: the detector, and the SimpleDecoder on the
+    feature vectors at ``fmask_idx`` (flat indices into the NHWC
+    ``[B*H*W]`` pixel axis, from :func:`topk_fmask` on the GT keymap)."""
+
+    def __init__(self, model_size: str = "xl",
+                 feature_dim: int = FEATURE_DIM,
+                 decoder_mid_dim: int = 2048, remat: bool = False,
+                 head_conv_dim: int = 192):
+        super().__init__()
+        self.detector = CenterNetDetection(
+            model_size, feature_dim, head_conv_dim=head_conv_dim,
+            remat=remat)
+        self.decoder = SimpleDecoder(feature_dim, decoder_mid_dim)
+
+    def forward(self, images: torch.Tensor, fmask_idx: torch.Tensor):
+        heatmap, features = self.detector(images)
+        sel = features.reshape(-1, features.shape[-1])[fmask_idx]
+        return heatmap, self.decoder(sel)

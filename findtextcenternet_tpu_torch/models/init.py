@@ -39,10 +39,10 @@ def init_flax_defaults_(module: nn.Module, gen: torch.Generator) -> nn.Module:
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(0.0, 1.0 / math.sqrt(m.embedding_dim),
                              generator=gen)
-        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
+        elif isinstance(m, (nn.modules.batchnorm._BatchNorm, nn.LayerNorm)):
             if m.weight is not None:
                 m.weight.fill_(1.0)
                 m.bias.zero_()
-            if isinstance(m, nn.BatchNorm2d):
+            if isinstance(m, nn.modules.batchnorm._BatchNorm):
                 m.reset_running_stats()
     return module

@@ -2,8 +2,9 @@
 
 The port's counterpart of ``findtextcenternet_tpu/train/checkpoint.py``
 (orbax there), with the same contract: a directory ``step_%09d`` per save
-under ``ckpt_dir`` holding the whole training state (step, parameters,
-optimizer state) and the averaged eval weights, the config JSON beside,
+under ``ckpt_dir`` holding the whole training state (step, parameters and
+BatchNorm buffers, optimizer state, the CoV statistics of the detector)
+and the averaged eval weights (with the buffers), the config JSON beside,
 the newest ``keep`` saves kept. Restoring continues training exactly. The
 files hold CPU tensors, so a checkpoint written on the card loads on the
 CPU and back.
@@ -17,6 +18,7 @@ from typing import Dict, Optional
 import torch
 
 from ..config import Config, to_json
+from ..losses import CoVState
 from .state import TrainState
 
 STATE_FILE = "state.pt"
@@ -40,6 +42,7 @@ def save_checkpoint(ckpt_dir: str, state: TrainState,
         "params": _cpu(state.model.state_dict()),
         "eval_params": _cpu(state.eval_state_dict()),
         "opt_state": _cpu(state.optimizer.state_dict()),
+        "cov": _cpu(state.cov.state_dict()) if state.cov is not None else {},
     }
     tmp = os.path.join(path, STATE_FILE + ".tmp")
     torch.save(payload, tmp)
@@ -78,11 +81,14 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     payload = _load(path)
     state.model.load_state_dict(payload["params"])
     state.optimizer.load_state_dict(payload["opt_state"])
+    if state.cov is not None:
+        state.cov = CoVState(**payload["cov"]).to(state.cov.t.device)
     state.step = int(payload["step"])
     return state
 
 
-def load_variables(path: str) -> Dict[str, torch.Tensor]:
-    """Inference-ready weights of a checkpoint: the Transformer state dict
-    with the schedule-free eval (averaged) weights."""
+def load_eval_params(path: str) -> Dict[str, torch.Tensor]:
+    """Inference-ready weights of a checkpoint: the model's state dict with
+    the schedule-free eval (averaged) weights and, for the detector, its
+    BN running statistics."""
     return _load(path)["eval_params"]

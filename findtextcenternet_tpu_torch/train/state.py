@@ -1,44 +1,54 @@
-"""Training state and the schedule-free RAdam optimizer of stage 3.
+"""Training state and the optimizers of the three training stages.
 
-The JAX package builds its optimizer as
-``optax.contrib.schedule_free(optax.radam(lr), lr, b1=0.9)``
-(``findtextcenternet_tpu/train/state.py:57-63``). This is that optimizer
-written out, step for step as optax 0.2.6 computes it
-(``optax/contrib/_schedule_free.py``, ``scale_by_radam`` in
-``optax/_src/transform.py``):
+The JAX package's optimizers (``findtextcenternet_tpu/train/state.py:45-63``,
+``train/train2.py:36-38``) written out, step for step as optax 0.2.6
+computes them (``optax/contrib/_schedule_free.py``, ``scale_by_radam`` and
+``scale_by_rms`` in ``optax/_src/transform.py``, the schedules in
+``optax/schedules/_schedule.py``):
 
-* the base RAdam keeps its own ``b1 = 0.9`` momentum (the repo does not
-  switch it off), ``b2 = 0.999``, ``eps = 1e-8``, and the rectification
-  switch ``ro >= 5``;
-* schedule-free averaging with ``b1 = 0.9``, ``weight_lr_power = 2`` and a
-  ``step_count`` starting at 1; the averaged sequence ``x`` is recomputed
-  from the parameters ``y`` and ``z`` each step.
+* :class:`ScheduleFreeRAdam` (stage 3):
+  ``schedule_free(radam(lr), lr, b1=0.9)``; the base RAdam keeps its own
+  ``b1 = 0.9`` momentum (the repo does not switch it off), ``b2 = 0.999``,
+  ``eps = 1e-8`` and the rectification switch ``ro >= 5``;
+* :class:`ScheduleFreeAdamW` (stage 1): ``schedule_free_adamw(lr,
+  warmup_steps, b1=0.9, weight_decay)``: ``scale_by_rms(b2=0.999,
+  eps=1e-8 outside the root, bias-corrected)``, the decayed weights, and the
+  warmup schedule, which runs on the base chain's step count (from 0) while
+  the averaging weight reads it at the wrapper's (from 1);
+* :class:`RAdam` (stage 2): plain ``radam`` on ``exponential_decay(lr,
+  steps_per_epoch, decay)``.
 
-The scalar recurrences (bias corrections, ``ro``, the rectifier, the
-averaging weight) run in numpy float32, which rounds them as XLA does; the
-tensor updates run in the parameters' dtype with torch's ``_foreach`` ops.
-The model's parameters are the gradient-evaluation sequence ``y`` and are
-updated in place; :meth:`ScheduleFreeRAdam.eval_params` gives the averaged
-``x`` used for evaluation and export.
+Schedule-free averaging (``b1 = 0.9``, ``weight_lr_power = 2``,
+``step_count`` from 1) recomputes the averaged sequence ``x`` from the
+parameters ``y`` and ``z`` each step. The scalar recurrences (bias
+corrections, ``ro``, the rectifier, the schedules, the averaging weight)
+run in numpy float32, which rounds them as XLA does; the tensor updates run
+in the parameters' dtype with torch's ``_foreach`` ops. The model's
+parameters are updated in place; ``eval_params`` gives the weights used
+for evaluation and export (the averaged ``x`` of the schedule-free ones).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..losses import CoVState
+
 _F32 = np.float32
-# optax.contrib.schedule_free(optax.radam(lr), lr, b1=0.9), defaults as the
-# JAX package leaves them
+# optax defaults, as the JAX package leaves them
 B1 = 0.9                 # schedule-free interpolation
 WEIGHT_LR_POWER = 2.0
 RADAM_B1, RADAM_B2 = 0.9, 0.999
+ADAM_B2 = 0.999          # scale_by_rms decay of schedule_free_adamw
 EPS = 1e-8
 RO_THRESHOLD = 5.0       # RAdam's rectification switch
+
+Tensors = Dict[str, torch.Tensor]
 
 
 def trainable_parameters(model: nn.Module) -> Dict[str, nn.Parameter]:
@@ -47,23 +57,57 @@ def trainable_parameters(model: nn.Module) -> Dict[str, nn.Parameter]:
     return {n: p for n, p in model.named_parameters() if p.requires_grad}
 
 
-class ScheduleFreeRAdam:
-    """Schedule-free RAdam over a dict of parameters (updated in place)."""
+class _Optimizer:
+    """Per-parameter buffers (``BUFFERS``) and scalars (``SCALARS``) over a
+    dict of parameters updated in place."""
+    BUFFERS: tuple = ()
+    SCALARS: tuple = ()
 
-    def __init__(self, params: Dict[str, torch.Tensor], learning_rate: float):
+    def __init__(self, params: Tensors):
         self.params = dict(params)
-        self.learning_rate = learning_rate
         with torch.no_grad():
-            self.z = {n: p.detach().clone() for n, p in self.params.items()}
-            self.mu = {n: torch.zeros_like(p) for n, p in self.params.items()}
-            self.nu = {n: torch.zeros_like(p) for n, p in self.params.items()}
-        self.count = 0            # RAdam's step count
-        self.step_count = 1       # schedule-free's, starts at 1
-        self.weight_sum = _F32(0.0)
-        self.max_lr = _F32(0.0)
+            for b in self.BUFFERS:
+                setattr(self, b, {n: (p.detach().clone() if b == "z"
+                                      else torch.zeros_like(p))
+                                  for n, p in self.params.items()})
 
-    def _lists(self, d: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+    def _lists(self, d: Tensors) -> List[torch.Tensor]:
         return [d[n] for n in self.params]
+
+    def _store(self, name: str, values: List[torch.Tensor]) -> None:
+        setattr(self, name, dict(zip(self.params, values)))
+
+    def state_dict(self) -> dict:
+        """The buffers by parameter name and the scalars (the layout
+        ``io.from_jax`` produces from the JAX package's optax state)."""
+        sd = {b: dict(getattr(self, b)) for b in self.BUFFERS}
+        for k in self.SCALARS:
+            v = getattr(self, k)
+            sd[k] = float(v) if isinstance(v, np.floating) else v
+        return sd
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        for key in self.BUFFERS:
+            mine = getattr(self, key)
+            if set(sd[key]) != set(mine):
+                raise KeyError(f"optimizer state {key!r} has other names "
+                               f"than the parameters")
+            for n, t in sd[key].items():
+                mine[n] = t.to(device=mine[n].device,
+                               dtype=mine[n].dtype).clone()
+        for k in self.SCALARS:
+            v = getattr(self, k)
+            setattr(self, k, _F32(sd[k]) if isinstance(v, np.floating)
+                    else int(sd[k]))
+
+    @torch.no_grad()
+    def eval_params(self) -> Tensors:
+        return {n: p.detach().clone() for n, p in self.params.items()}
+
+
+class _RAdamMoments:
+    """RAdam's moments ``mu``, ``nu`` and its step ``count``."""
 
     @staticmethod
     def _radam_scalars(count: int):
@@ -80,25 +124,11 @@ class ScheduleFreeRAdam:
             rect = np.sqrt(num / den)
         return _F32(1.0) - b1 ** c, _F32(1.0) - b2 ** c, rect
 
-    @torch.no_grad()
-    def step(self, grads: Dict[str, torch.Tensor]) -> None:
-        """One update from ``grads`` (keyed like the parameters)."""
-        lr = _F32(self.learning_rate)
-        max_lr = np.maximum(self.max_lr, lr)
-        weight = max_lr ** _F32(WEIGHT_LR_POWER)
-        total = self.weight_sum + weight
-        if np.isnan(weight) or np.isnan(total):
-            ck = _F32(np.nan)
-        else:
-            with np.errstate(divide="ignore", invalid="ignore"):
-                ck = _F32(np.nan_to_num(weight / total, nan=0.0,
-                                        posinf=np.inf))
+    def _radam(self, gs: List[torch.Tensor]) -> List[torch.Tensor]:
+        """``scale_by_radam``'s direction for ``gs`` (before the learning
+        rate); advances ``mu``, ``nu`` and ``count``."""
         count = self.count + 1
         bc1, bc2, rect = self._radam_scalars(count)
-
-        ys = self._lists(self.params)
-        gs = [grads[n] for n in self.params]
-        zs = self._lists(self.z)
         mus = torch._foreach_add(
             torch._foreach_mul(gs, 1.0 - RADAM_B1),
             torch._foreach_mul(self._lists(self.mu), RADAM_B1))
@@ -112,8 +142,47 @@ class ScheduleFreeRAdam:
             torch._foreach_add_(nu_hat, EPS)
             upd = torch._foreach_div(torch._foreach_mul(upd, float(rect)),
                                      nu_hat)
-            del nu_hat
-        torch._foreach_mul_(upd, -float(lr))
+        self._store("mu", mus)
+        self._store("nu", nus)
+        self.count = count
+        return upd
+
+
+class _ScheduleFree(_Optimizer):
+    """optax ``schedule_free`` around a base optimizer
+    (:meth:`_base_update`), the wrapper's learning rate from
+    :meth:`_wrapper_lr`."""
+    SCALARS = ("count", "step_count", "weight_sum", "max_lr")
+
+    def __init__(self, params: Tensors):
+        super().__init__(params)
+        self.count = 0            # the base optimizer's step count
+        self.step_count = 1       # schedule-free's, starts at 1
+        self.weight_sum = _F32(0.0)
+        self.max_lr = _F32(0.0)
+
+    def _wrapper_lr(self) -> np.float32:
+        raise NotImplementedError
+
+    def _base_update(self, gs: List[torch.Tensor]) -> List[torch.Tensor]:
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def step(self, grads: Tensors) -> None:
+        """One update from ``grads`` (keyed like the parameters)."""
+        lr = self._wrapper_lr()
+        max_lr = np.maximum(self.max_lr, lr)
+        weight = max_lr ** _F32(WEIGHT_LR_POWER)
+        total = self.weight_sum + weight
+        if np.isnan(weight) or np.isnan(total):
+            ck = _F32(np.nan)
+        else:
+            with np.errstate(divide="ignore", invalid="ignore"):
+                ck = _F32(np.nan_to_num(weight / total, nan=0.0,
+                                        posinf=np.inf))
+        ys = self._lists(self.params)
+        zs = self._lists(self.z)
+        upd = self._base_update([grads[n] for n in self.params])
         new_z = torch._foreach_add(zs, upd)
         del upd
         b1 = B1
@@ -128,15 +197,12 @@ class ScheduleFreeRAdam:
         del x
         # optax returns the update new_y - y and the step adds it back
         torch._foreach_add_(ys, torch._foreach_sub(new_y, ys))
-
-        for i, n in enumerate(self.params):
-            self.z[n], self.mu[n], self.nu[n] = new_z[i], mus[i], nus[i]
-        self.count = count
+        self._store("z", new_z)
         self.step_count += 1
         self.weight_sum, self.max_lr = _F32(total), _F32(max_lr)
 
     @torch.no_grad()
-    def eval_params(self) -> Dict[str, torch.Tensor]:
+    def eval_params(self) -> Tensors:
         """The averaged sequence ``x = (y - (1 - b1) z) / b1``, by name
         (optax's ``schedule_free_eval_params``)."""
         b1 = B1
@@ -145,38 +211,121 @@ class ScheduleFreeRAdam:
             torch._foreach_mul(self._lists(self.z), 1.0 - b1)), b1)
         return dict(zip(self.params, xs))
 
-    def state_dict(self) -> dict:
-        """Optimizer state: ``z``, ``mu``, ``nu`` by parameter name and the
-        scalars (the layout that
-        :func:`..io.from_jax.schedule_free_state_from_optax` produces)."""
-        return {"z": dict(self.z), "mu": dict(self.mu), "nu": dict(self.nu),
-                "count": self.count, "step_count": self.step_count,
-                "weight_sum": float(self.weight_sum),
-                "max_lr": float(self.max_lr)}
+
+class ScheduleFreeRAdam(_ScheduleFree, _RAdamMoments):
+    """Schedule-free RAdam at a constant learning rate (stage 3)."""
+    BUFFERS = ("z", "mu", "nu")
+
+    def __init__(self, params: Tensors, learning_rate: float):
+        super().__init__(params)
+        self.learning_rate = learning_rate
+
+    def _wrapper_lr(self):
+        return _F32(self.learning_rate)
+
+    def _base_update(self, gs):
+        upd = self._radam(gs)
+        torch._foreach_mul_(upd, -float(_F32(self.learning_rate)))
+        return upd
+
+
+def warmup_lr(learning_rate: float, warmup_steps: int, count: int
+              ) -> np.float32:
+    """optax ``warmup_constant_schedule(0, lr, warmup_steps)`` at
+    ``count``: linear from 0 to ``lr`` over ``warmup_steps``. At
+    ``warmup_steps <= 0`` optax's schedule is the constant 0, and so is
+    this one."""
+    if warmup_steps <= 0:
+        return _F32(0.0)
+    c = min(max(count, 0), warmup_steps)
+    frac = _F32(1.0) - _F32(c) / _F32(warmup_steps)
+    return _F32(-learning_rate) * frac + _F32(learning_rate)
+
+
+class ScheduleFreeAdamW(_ScheduleFree):
+    """Schedule-free AdamW with a linear warmup (stage 1)."""
+    BUFFERS = ("z", "nu")
+
+    def __init__(self, params: Tensors, learning_rate: float,
+                 warmup_steps: int = 0, weight_decay: float = 0.0):
+        super().__init__(params)
+        self.learning_rate = learning_rate
+        self.warmup_steps = warmup_steps
+        self.weight_decay = weight_decay
+
+    def _wrapper_lr(self):
+        return warmup_lr(self.learning_rate, self.warmup_steps,
+                         self.step_count)
+
+    def _base_update(self, gs):
+        count = self.count + 1
+        nus = torch._foreach_add(
+            torch._foreach_mul(torch._foreach_mul(gs, gs), 1.0 - ADAM_B2),
+            torch._foreach_mul(self._lists(self.nu), ADAM_B2))
+        bc2 = _F32(1.0) - _F32(ADAM_B2) ** _F32(count)
+        scale = torch._foreach_div(nus, float(bc2))
+        torch._foreach_sqrt_(scale)
+        torch._foreach_add_(scale, EPS)
+        torch._foreach_reciprocal_(scale)
+        upd = torch._foreach_mul(scale, gs)
+        del scale
+        if self.weight_decay:
+            torch._foreach_add_(upd, torch._foreach_mul(
+                self._lists(self.params), float(_F32(self.weight_decay))))
+        # scale_by_learning_rate reads the schedule at its own count,
+        # which starts at 0
+        torch._foreach_mul_(upd, -float(warmup_lr(
+            self.learning_rate, self.warmup_steps, self.count)))
+        self._store("nu", nus)
+        self.count = count
+        return upd
+
+
+def exponential_decay_lr(learning_rate: float, transition_steps: int,
+                         decay_rate: float, count: int) -> np.float32:
+    """optax ``exponential_decay(lr, transition_steps, decay_rate)`` at
+    ``count`` (no staircase, no end value)."""
+    if transition_steps <= 0 or decay_rate == 0 or count <= 0:
+        return _F32(learning_rate)
+    p = _F32(count) / _F32(transition_steps)
+    return _F32(learning_rate) * np.power(_F32(decay_rate), p)
+
+
+class RAdam(_Optimizer, _RAdamMoments):
+    """Plain RAdam on an exponentially decaying learning rate (stage 2);
+    the parameters are the eval weights."""
+    BUFFERS = ("mu", "nu")
+    SCALARS = ("count",)
+
+    def __init__(self, params: Tensors, learning_rate: float,
+                 transition_steps: int, decay_rate: float):
+        super().__init__(params)
+        self.learning_rate = learning_rate
+        self.transition_steps = transition_steps
+        self.decay_rate = decay_rate
+        self.count = 0
 
     @torch.no_grad()
-    def load_state_dict(self, sd: dict) -> None:
-        for key in ("z", "mu", "nu"):
-            mine = getattr(self, key)
-            if set(sd[key]) != set(mine):
-                raise KeyError(f"optimizer state {key!r} has other names "
-                               f"than the parameters")
-            for n, t in sd[key].items():
-                mine[n] = t.to(device=mine[n].device,
-                               dtype=mine[n].dtype).clone()
-        self.count = int(sd["count"])
-        self.step_count = int(sd["step_count"])
-        self.weight_sum = _F32(sd["weight_sum"])
-        self.max_lr = _F32(sd["max_lr"])
+    def step(self, grads: Tensors) -> None:
+        lr = exponential_decay_lr(self.learning_rate, self.transition_steps,
+                                  self.decay_rate, self.count)
+        upd = self._radam([grads[n] for n in self.params])
+        torch._foreach_mul_(upd, -float(lr))
+        torch._foreach_add_(self._lists(self.params), upd)
 
 
 @dataclasses.dataclass
 class TrainState:
-    """Step count, model (its parameters are ``y``) and optimizer. The
-    step functions update it in place and return it."""
+    """Step count, model (its parameters, and its BatchNorm buffers, which
+    no optimizer touches), optimizer and, for the detector, the CoV loss
+    statistics. ``compute_dtype`` is the dtype the step computes in under
+    ``torch.autocast`` (f32: no autocast). The step functions update the
+    state in place and return it."""
     step: int
     model: nn.Module
-    optimizer: ScheduleFreeRAdam
+    optimizer: _Optimizer
+    cov: Optional[CoVState] = None
+    compute_dtype: torch.dtype = torch.float32
 
     @torch.no_grad()
     def eval_state_dict(self) -> Dict[str, torch.Tensor]:

@@ -8,7 +8,8 @@ averaged weights. One device, no mesh. ``attn_impl="auto"`` (the config's
 default) trains through the CUDA attention kernels on the card and the
 einsum composition on the CPU.
 
-Usage (same flags as the JAX CLI, plus ``--device``):
+Usage (same flags as the JAX CLI, plus ``--device`` and ``--config``, see
+``cli``):
 
     python -m findtextcenternet_tpu_torch.train.train3 \\
         --features=train_data3/features.npz --texts='train_data3/*/*.txt' \\
@@ -20,8 +21,6 @@ card).
 """
 from __future__ import annotations
 
-import dataclasses
-import glob
 import sys
 
 import torch
@@ -30,6 +29,7 @@ from ..config import Config, resolve_attn_impl
 from ..device import resolve_device
 from ..models.init import init_flax_defaults_
 from ..models.transformer import Transformer, TransformerDims
+from .cli import glob_sorted, parse_flags
 
 
 def build_transformer_state(config: Config, seed: int = 0, device=None):
@@ -150,44 +150,18 @@ def train(features_npz=None, text_files=(), config=None,
 
 
 def main(argv=None):
-    dc = dataclasses
     argv = list(sys.argv[1:] if argv is None else argv)
     kw = {}
-    cfg = Config()
-    args = iter(argv)
-    for a in args:
-        if a == "--device":
-            a = "--device=" + next(args)
-        if a.startswith("--features="):
-            kw["features_npz"] = a.split("=", 1)[1]
-        elif a.startswith("--texts="):
-            kw["text_files"] = sorted(glob.glob(a.split("=", 1)[1]))
-        elif a.startswith("--realdata-dir="):
-            kw["realdata_dir"] = a.split("=", 1)[1]
-        elif a == "--synthetic-bank":
-            kw["synthetic_bank"] = True
-        elif a.startswith("--batch-size="):
-            cfg = dc.replace(cfg, train=dc.replace(
-                cfg.train, batch_size=int(a.split("=", 1)[1])))
-        elif a.startswith("--epochs="):
-            cfg = dc.replace(cfg, train=dc.replace(
-                cfg.train, epochs=int(a.split("=", 1)[1])))
-        elif a.startswith("--lr="):
-            cfg = dc.replace(cfg, train=dc.replace(
-                cfg.train, learning_rate=float(a.split("=", 1)[1])))
-        elif a.startswith("--checkpoint-dir="):
-            cfg = dc.replace(cfg, train=dc.replace(
-                cfg.train, checkpoint_dir=a.split("=", 1)[1]))
-        elif a.startswith("--steps-per-epoch="):
-            kw["steps_per_epoch"] = int(a.split("=", 1)[1])
-        elif a.startswith("--attn-impl="):
-            cfg = dc.replace(cfg, transformer=dc.replace(
-                cfg.transformer, attn_impl=a.split("=", 1)[1]))
-        elif a.startswith("--accum="):
-            cfg = dc.replace(cfg, train=dc.replace(
-                cfg.train, accum_steps=int(a.split("=", 1)[1])))
-        elif a.startswith("--device="):
-            kw["device"] = a.split("=", 1)[1]
+    cfg = parse_flags(argv, Config(), kw, {
+        "--features": ("features_npz", str),
+        "--texts": ("text_files", glob_sorted),
+        "--realdata-dir": ("realdata_dir", str),
+        "--synthetic-bank": ("synthetic_bank", None),
+        "--steps-per-epoch": ("steps_per_epoch", int),
+    }, {
+        "--attn-impl": ("transformer", "attn_impl", str),
+        "--accum": ("train", "accum_steps", int),
+    })
     train(config=cfg, **kw)
     return 0
 

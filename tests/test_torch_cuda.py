@@ -12,19 +12,30 @@ another order (key tiles, online softmax; the backward rebuilds the
 softmax from the forward's log-sum-exp) and multiply on the tensor cores in
 split tf32: f32 within atol 1e-4, rtol 1e-4;
 bf16 outputs round to 8 bits and the plain version also rounds the softmax
-weights to bf16, so atol 3e-2.
+weights to bf16, so atol 3e-2. Detector training on the card against its
+CPU run: f32 with TF32 off, convolution sums in another order, atol/rtol
+1e-4.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from findtextcenternet_tpu_torch.config import Config
+from findtextcenternet_tpu_torch.infer.pipeline import FeatureStream, OCRPipeline
+from findtextcenternet_tpu_torch.models.batchnorm import (
+    BatchNorm1d, BatchNorm2d)
+from findtextcenternet_tpu_torch.models.detector import topk_fmask
 from findtextcenternet_tpu_torch.models.init import init_flax_defaults_
 from findtextcenternet_tpu_torch.models.transformer import (
     MultiheadAttn, Transformer, TransformerDims, make_key_mask)
 from findtextcenternet_tpu_torch.ops import attention, nms, peaks
 from findtextcenternet_tpu_torch.train.state import create_train_state
 from findtextcenternet_tpu_torch.train.steps import (
-    batch_to_device, loss_and_grads, transformer_train_step)
+    _detector_micro, batch_to_device, detector_batch_to_device,
+    detector_train_step, loss_and_grads, transformer_train_step)
+from findtextcenternet_tpu_torch.train.train1 import build_detector_state
 
 pytestmark = pytest.mark.gpu
 
@@ -480,3 +491,167 @@ def test_train_step_on_card_fused_equals_xla(cuda):
     for k, v in results["xla"][1].items():
         np.testing.assert_allclose(results["fused"][1][k], v, atol=1e-4,
                                    rtol=1e-4, err_msg=k)
+
+
+# ---------------------------------------------------------------------
+# detector training and bucketed decode
+# ---------------------------------------------------------------------
+
+def _tiny_detector_config():
+    cfg = Config()
+    return dataclasses.replace(
+        cfg, detector=dataclasses.replace(
+            cfg.detector, model_size="tiny", feature_dim=8,
+            decoder_mid_dim=32, image_size=(64, 64),
+            fmask_topk_per_sample=8),
+        train=dataclasses.replace(cfg.train, learning_rate=1e-3,
+                                  warmup_steps=2))
+
+
+def _detector_batch(seed, n=4):
+    from findtextcenternet_tpu_torch.data.targets import make_target_maps
+    rng = np.random.default_rng(seed)
+    labels, ids = [], []
+    for _ in range(n):
+        k = int(rng.integers(2, 6))
+        pos = np.stack([rng.uniform(8, 56, k), rng.uniform(8, 56, k),
+                        rng.uniform(6, 20, k), rng.uniform(6, 20, k)], 1)
+        codes = np.stack([rng.integers(0x20, 0x3000, k),
+                          rng.integers(0, 16, k)], 1)
+        keysize, idmap, _ = make_target_maps(
+            pos.astype(np.float32), codes.astype(np.int32), (16, 16))
+        lines = (rng.uniform(size=(16, 16, 2)) > 0.7).astype(np.float32)
+        labels.append(np.concatenate([keysize, lines], -1))
+        ids.append(idmap)
+    return {"image": rng.uniform(0, 1, (n, 64, 64, 3)).astype(np.float32),
+            "labelmap": np.stack(labels).astype(np.float32),
+            "idmap": np.stack(ids).astype(np.int32)}
+
+
+def test_detector_train_step_on_card_equals_cpu(cuda):
+    """The tiny detector's first micro-step (drop path on, its masks drawn
+    from the same seeded CPU generator): gradients, the BN buffers after
+    it and the CoV statistics; then three optimizer steps (accum 1, 1, 2):
+    every loss term, on the card as on the CPU, f32."""
+    cfg = _tiny_detector_config()
+    states = {}
+    for dev in ("cpu", cuda):
+        _, st = build_detector_state(cfg, seed=0, device=dev)
+        st.compute_dtype = torch.float32
+        states[str(dev)] = st
+    cpu, gpu = states["cpu"], states["cuda"]
+    batch = _detector_batch(0)
+    g = {}
+    for name, st in states.items():
+        st.model.train()
+        mb = detector_batch_to_device(batch, next(st.model.parameters()
+                                                  ).device)
+        g[name], _ = _detector_micro(st, mb, 8, 1.0, seed=7)
+    for k, want in g["cpu"].items():
+        np.testing.assert_allclose(g["cuda"][k].cpu().numpy(),
+                                   want.numpy(), atol=1e-4, rtol=1e-4,
+                                   err_msg=k)
+    for k, want in cpu.model.state_dict().items():
+        if k.endswith(("running_mean", "running_var")):
+            np.testing.assert_allclose(
+                gpu.model.state_dict()[k].cpu().numpy(), want.numpy(),
+                atol=1e-4, rtol=1e-4, err_msg=k)
+    for f in ("mean_L", "mean_l", "S_l"):
+        np.testing.assert_allclose(getattr(gpu.cov, f).cpu().numpy(),
+                                   getattr(cpu.cov, f).numpy(), atol=1e-4,
+                                   rtol=1e-4, err_msg=f)
+    for i, accum in enumerate((1, 1, 2)):
+        b = _detector_batch(1 + i)
+        _, mc = detector_train_step(cpu, b, fmask_k=8, accum_steps=accum)
+        _, mg = detector_train_step(gpu, b, fmask_k=8, accum_steps=accum)
+        for k, want in mc.items():
+            np.testing.assert_allclose(float(mg[k]), float(want), atol=1e-4,
+                                       rtol=1e-4, err_msg=f"step {i} {k}")
+    assert gpu.step == cpu.step == 3
+
+
+def test_topk_fmask_tie_order_on_card(cuda):
+    """A batch-32 GT keymap at the training size, mostly exact zeros and
+    plateaus: the card selects the indices the CPU does, lower index first
+    among ties (numpy's stable argsort as the reference)."""
+    rng = np.random.default_rng(0)
+    keymap = np.zeros((32, 192, 192), np.float32)
+    idx = rng.integers(0, keymap.size, 5000)
+    keymap.reshape(-1)[idx] = rng.integers(1, 5, len(idx)) / 4.0
+    want = np.argsort(-keymap.reshape(-1), kind="stable")[:32 * 1024]
+    got_cpu = topk_fmask(torch.from_numpy(keymap), 1024).numpy()
+    got_gpu = topk_fmask(torch.from_numpy(keymap).to(cuda), 1024).cpu()
+    np.testing.assert_array_equal(got_cpu, want)
+    np.testing.assert_array_equal(got_gpu.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_running_variance_fixup_on_card(cuda, dtype):
+    """The card's BatchNorm with the fix-up: the running variance moves
+    towards the biased batch variance, in 2-d and 1-d, on f32 input and on
+    bf16 input under autocast (a convolution's output there)."""
+    gen = torch.Generator().manual_seed(0)
+    for bn, x in ((BatchNorm2d(16, eps=1e-3), torch.randn(
+            (4, 16, 24, 24), generator=gen) * 2 + 1),
+                  (BatchNorm1d(64, eps=1e-5), torch.randn(
+            (256, 64), generator=gen) * 3 - 1)):
+        bn = bn.to(cuda).train()
+        bn.running_var.fill_(2.0)
+        xc = x.to(cuda, dtype)
+        with torch.autocast("cuda", dtype=dtype,
+                            enabled=dtype != torch.float32):
+            bn(xc)
+        xs = xc.float()
+        dims = [d for d in range(xs.dim()) if d != 1]
+        var = xs.var(dim=dims, unbiased=False)
+        mean = xs.mean(dim=dims)
+        torch.testing.assert_close(bn.running_var, 0.9 * 2.0 + 0.1 * var,
+                                   rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(bn.running_mean, 0.1 * mean,
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_bucketed_decode_on_card_equals_cpu(cuda):
+    """decode_len_buckets (8, 12, 24) with the fused route: windows at
+    lengths 8 and 24 reach the attention kernel, those at 12 (not a
+    multiple of 8) the einsum path; the texts equal the CPU run's, on the
+    host stream and on the default path's FeatureStream (glyph features
+    on the card in f16, gathered per (bucket, s_len) inside the decode)."""
+    cfg = Config()
+    cfg = dataclasses.replace(
+        cfg, transformer=dataclasses.replace(
+            cfg.transformer, embed_dim=32, head_num=4, enc_block_num=1,
+            dec_block_num=1, max_enc_seq_len=24, max_dec_seq_len=24),
+        inference=dataclasses.replace(
+            cfg.inference, decode_attention="fused",
+            decode_len_buckets=(8, 12, 24)),
+        mask_predict=dataclasses.replace(cfg.mask_predict, max_rounds=3))
+    rng = np.random.default_rng(7)
+    # f16 values, so the device buffer holds what the host stream does
+    feats = rng.standard_normal((60, 106)).astype(np.float16)
+    feats = feats.astype(np.float32)
+    feats[:, -6:] = 0.0
+    stream = feats.copy().view(FeatureStream)
+    stream[:, :100] = 0.0
+    stream.glyph_idx = np.arange(len(feats), dtype=np.int64)
+    stream.glyph_dev = torch.from_numpy(
+        feats[:, :100].astype(np.float16)).to(cuda)
+    groups = {8: [(0, 0, 3, 0), (0, 3, 7, 0)], 12: [(0, 7, 15, 0)],
+              24: [(0, 15, 37, 0), (0, 37, 59, 0)]}
+    cpu = OCRPipeline(cfg, model_size="tiny", device="cpu")
+    gpu = OCRPipeline(cfg, transformer_state=cpu.transformer.state_dict(),
+                      model_size="tiny", device=cuda)
+    for s_len, windows in groups.items():
+        want = cpu.decode_windows(feats, windows)
+        for src in (feats, stream):
+            before = attention.launches.count
+            got = gpu.decode_windows(src, windows)
+            launched = attention.launches.count - before
+            assert (launched > 0) == (s_len % 8 == 0), (s_len, launched)
+            assert got == want, s_len
+    windows = [w for ws in groups.values() for w in ws]
+    want = cpu.decode_windows(feats, windows)
+    assert gpu.decode_windows(feats, windows) == want
+    gpu.feature_gathers.reset()
+    assert gpu.decode_windows(stream, windows) == want
+    assert gpu.feature_gathers.count >= 1

@@ -298,8 +298,80 @@ def test_pipeline_without_a_card_raises(monkeypatch):
         OCRPipeline()
 
 
-def test_unported_paths_raise():
-    """``decode_len_buckets`` is the one inference path still unported."""
-    _, cfg = _configs(inference={"decode_len_buckets": (64,)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        OCRPipeline(cfg, device="cpu")
+# ---------------------------------------------------------------------
+# decode_len_buckets
+# ---------------------------------------------------------------------
+
+def _with_buckets(pipe, buckets):
+    pipe.cfg = dataclasses.replace(pipe.cfg, inference=dataclasses.replace(
+        pipe.cfg.inference, decode_len_buckets=buckets))
+
+
+def _bucket_windows(enc_len):
+    """2 full-length windows and 3 three-glyph windows, interleaved
+    (``tests/test_pipeline.py::test_decode_len_buckets``), with the
+    ruby/direction columns zeroed so ``seq_need`` is content-driven."""
+    rng = np.random.default_rng(7)
+    step = enc_len - 2
+    feats = rng.standard_normal((2 * step + 9, tconfig.const.ENCODER_DIM)
+                                ).astype(np.float32)
+    feats[:, -6:] = 0.0
+    windows = [(0, 0, step, 0), (0, step, step + 3, 0),
+               (0, step + 3, step + 6, 0), (0, step + 6, 2 * step + 6, 0),
+               (0, 2 * step + 6, 2 * step + 9, 0)]
+    return feats, windows
+
+
+@pytest.mark.parametrize("short", [False, True], ids=["enc_len", "8+enc_len"])
+def test_decode_len_buckets_match_jax(gate_b_pipelines, short):
+    """Buckets ``(enc_len,)`` decode exactly as no buckets; ``(8, enc_len)``
+    sends the three-glyph windows to an 8-token decode. Port and JAX give
+    the same texts either way, on the same weights."""
+    jpipe, tpipe = gate_b_pipelines
+    enc_len = tpipe.transformer.dims.max_enc_seq_len
+    feats, windows = _bucket_windows(enc_len)
+    default = tpipe.decode_windows(feats, windows)
+    buckets = (8, enc_len) if short else (enc_len,)
+    saved = jpipe.cfg, tpipe.cfg
+    try:
+        for p in (jpipe, tpipe):
+            _with_buckets(p, buckets)
+        got = tpipe.decode_windows(feats, windows)
+        want = jpipe.decode_windows(feats, windows)
+    finally:
+        jpipe.cfg, tpipe.cfg = saved
+    assert got == want
+    assert any(want), "random weights must decode some text"
+    if short:
+        assert got[0] == default[0] and got[3] == default[3]
+        assert 8 in jpipe._decode_cache
+    else:
+        assert got == default
+
+
+def test_decode_len_buckets_feature_stream_equals_host(gate_b_pipelines):
+    """The default path (device page merge, device features: the decode
+    gathers (bucket, s_len) rows of the device buffer) equals the host
+    path under buckets, page for page, and so does the JAX package's."""
+    jpipe, tpipe = gate_b_pipelines
+    buckets = (8, 16, 24)
+    cfg = dataclasses.replace(tpipe.cfg, inference=dataclasses.replace(
+        tpipe.cfg.inference, fused_page_merge=True, device_features=True,
+        decode_len_buckets=buckets))
+    dev = OCRPipeline(cfg, transformer_state=tpipe.transformer.state_dict(),
+                      model_size="tiny", detector_apply=tpipe._apply_fn,
+                      device="cpu")
+    saved = jpipe.cfg, tpipe.cfg
+    try:
+        for p in (jpipe, tpipe):
+            _with_buckets(p, buckets)
+        img = _noisy_page(0)
+        dev.feature_gathers.reset()
+        got = dev(img)
+        host = tpipe(img)
+        want = jpipe(img)
+    finally:
+        jpipe.cfg, tpipe.cfg = saved
+    assert dev.feature_gathers.count >= 1
+    assert got["text"] and got["text"] == host["text"] == want["text"]
+    _assert_same_output(got, host)

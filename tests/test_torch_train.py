@@ -390,7 +390,7 @@ def test_checkpoint_roundtrip_resumes_exactly(tmp_path):
                                    atol=0)
     # the saved eval weights load into an inference model
     m = tt.Transformer(TDIMS)
-    m.load_state_dict(ckpt.load_variables(path))
+    m.load_state_dict(ckpt.load_eval_params(path))
     # keep 3
     for _ in range(3):
         transformer_train_step(state, _batch(0))
