@@ -104,7 +104,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``--whole-batch``, the batch of 32 in one micro-batch, for its step
    time and peak memory (or the peak before it fails, where it does not
    fit).
-7. Reference check on a small input: the tiny detector and a tiny
+7. The loop from training back to training data, at full width: the
+   train3 phase's state and the detector-training phase's xl state saved
+   as port checkpoints (bytes and write seconds), exported by
+   ``io/torch_export.py`` to ``model.pt`` / ``model3.pt`` (bytes, write
+   and load seconds; each file's tensors equal to its checkpoint's eval
+   weights bit for bit). ``run_ocr.build_pipeline`` serves them on the
+   card: every loaded tensor equals the eval weights (the detector as
+   their bf16 cast), the SimpleDecoder is loaded, and the synthetic page
+   under the serving phase's realistic detections, on the fused route,
+   equals field for field the page of a pipeline given the eval weights
+   as state dicts directly, with the NMS kernel launched once a detector
+   chunk (2) and the attention kernel in the decode (counts reset just
+   before each page; ms/page). ``FeatureHarvester`` then harvests
+   ``HARVEST_PAGES`` pages with the served pipeline (the detections,
+   matched vectors, NMS launches and ms of each page; at least one vector
+   must match): pages of the port's PageGenerator where the machine has
+   fonts, else the synthetic page of ``synth_page_and_boxes`` with its
+   boxes as ground truth. The bank is packed by ``save_feature_bank``,
+   loaded by ``FeatureBank.load`` and drawn from for a train3 batch.
+8. Reference check on a small input: the tiny detector and a tiny
    Transformer on the GPU against the same weights on the CPU, the tiny
    model's default page path against its host path on the GPU, bit for
    bit, on a page that yields detections, and a tiny bucketed decode on
@@ -118,8 +137,10 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -154,6 +175,10 @@ BUCKET_WINDOW_GLYPHS = [8, 12, 20, 30, 45, 58] * 6 + [70, 100, 120] * 4 \
 # the batch-32 step
 DET_WARMUP, DET_STEPS, DET_PROFILED = 2, 4, 2
 DET_ACCUM = 4
+# the train -> export -> serve -> harvest phase: the training phases'
+# checkpoints, and the pages it harvests
+CKPT_ROOT = os.path.join(tempfile.gettempdir(), f"chip_smoke_{os.getpid()}")
+HARVEST_PAGES = 8
 
 
 def log(*args):
@@ -1294,7 +1319,8 @@ def step_work(model, batches) -> dict:
 
 def phase_training():
     """train3's full-width step on the card, through the attention kernels;
-    returns the training launch counts."""
+    returns the training launch counts and the directory of the state's
+    port checkpoint."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1447,9 +1473,10 @@ def phase_training():
     if bad or not np.isclose(metrics["fused"], metrics["xla"], rtol=1e-3,
                              atol=1e-3):
         raise AssertionError("fused and xla training steps disagree")
+    ckpt_dir = save_state(state, cfg, "train3")
     del grads, model, state, batches
     torch.cuda.empty_cache()
-    return launches
+    return launches, ckpt_dir
 
 
 def detector_targets(rng, n: int, hw: int = 192, boxes: int = 250):
@@ -1730,8 +1757,6 @@ def phase_detector_loader(state):
     members, so no image codec is needed), read by DetectorLoader's spawned
     workers (the native augmenter) into batches of 32 at 768²; the loader's
     images/s on the host, and one train step on the card with its batch."""
-    import shutil
-
     import torch
 
     from findtextcenternet_tpu_torch.data.loader import DetectorLoader
@@ -1796,6 +1821,245 @@ def phase_detector_loader(state):
                loss=loss, keys_max=float(second["labelmap"][..., 0].max()))
     log(f"loader -> card: {json.dumps(res)}")
     return res
+
+
+def save_state(state, cfg, name: str) -> str:
+    """A training phase's state as a port checkpoint under ``CKPT_ROOT``;
+    prints its bytes and the seconds taken to write it."""
+    from findtextcenternet_tpu_torch.train.checkpoint import save_checkpoint
+
+    t0 = time.perf_counter()
+    path = save_checkpoint(os.path.join(CKPT_ROOT, name), state, cfg)
+    nbytes = sum(os.path.getsize(os.path.join(path, f))
+                 for f in os.listdir(path))
+    log(f"{name}: port checkpoint of step {state.step} written, {nbytes} "
+        f"bytes in {time.perf_counter() - t0:.2f} s")
+    return os.path.dirname(path)
+
+
+class SynthHarvestPages:
+    """Pages for the harvester where the machine has no fonts: the
+    synthetic 2048x1448 page of :func:`synth_page_and_boxes` (one page a
+    draw from ``seed``) in the factory's page layout. Its boxes are the
+    ground truth (the overlapping duplicates left out), each with one of
+    ``codes`` drawn at random; the line map is its quarter-scale text-line
+    plane brought to half scale."""
+
+    def __init__(self, seed: int = 0, codes=tuple(range(0x3042, 0x304A))):
+        self.rng = np.random.default_rng(seed)
+        self.codes = np.asarray(codes, np.int32)
+
+    def generate(self) -> dict:
+        img, locs, lines, seps = synth_page_and_boxes(self.rng)
+        gt = locs[locs[:, 0] >= 0.6]
+        codes = self.codes[self.rng.integers(len(self.codes), size=len(gt))]
+        half = lambda m: np.repeat(np.repeat(  # noqa: E731
+            (m * 255).astype(np.uint8), 2, 0), 2, 1)
+        return {"image": np.ascontiguousarray(img[..., 0]),
+                "textline": half(lines), "sepline": half(seps),
+                "position": np.ascontiguousarray(gt[:, 1:5]),
+                "code_list": np.stack([codes, np.zeros_like(codes)], 1),
+                "text": "".join(map(chr, codes))}
+
+
+def phase_weights_loop(det_ckpt: str, tf_ckpt: str):
+    """The path from training to serving and back to training data, at
+    full width: the detector-training phase's xl state and the train3
+    phase's state, saved as port checkpoints, exported by
+    ``io/torch_export.py`` to ``model.pt`` / ``model3.pt``; served from
+    those files through ``run_ocr.build_pipeline`` on the card (every
+    loaded tensor equal to the checkpoint's eval weights, the page equal
+    to a pipeline built from the eval weights directly); a feature bank
+    harvested with that pipeline over ``HARVEST_PAGES`` pages, packed,
+    loaded and drawn from for a train3 batch."""
+    import torch
+
+    from findtextcenternet_tpu_torch.data.transformer_data import (
+        FeatureBank, TransformerDataset, save_feature_bank)
+    from findtextcenternet_tpu_torch.factory.generators import PageGenerator
+    from findtextcenternet_tpu_torch.factory.harvest import FeatureHarvester
+    from findtextcenternet_tpu_torch.factory.rasterizer import find_fonts
+    from findtextcenternet_tpu_torch.infer import run_ocr
+    from findtextcenternet_tpu_torch.infer.pipeline import (
+        DetectedPage, LazyFeatures, OCRPipeline)
+    from findtextcenternet_tpu_torch.io import torch_export, torch_import
+    from findtextcenternet_tpu_torch.ops import attention, nms
+    from findtextcenternet_tpu_torch.train import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(CKPT_ROOT, "export")
+    files = {}
+    for name, kw in (("model.pt", dict(detector_ckpt=det_ckpt)),
+                     ("model3.pt", dict(transformer_ckpt=tf_ckpt))):
+        t0 = time.perf_counter()
+        path = torch_export.export_torch_checkpoints(out_dir, **kw)[name]
+        t1 = time.perf_counter()
+        loaded = torch_import.load_torch_state_dict(path)
+        t2 = time.perf_counter()
+        files[name] = (path, loaded)
+        log(f"export: {name} {os.path.getsize(path)} bytes, {len(loaded)} "
+            f"tensors, written in {t1 - t0:.2f} s, loaded in "
+            f"{t2 - t1:.2f} s")
+    det_eval = ckpt.load_eval_params(ckpt.latest_checkpoint(det_ckpt))
+    tf_eval = ckpt.load_eval_params(ckpt.latest_checkpoint(tf_ckpt))
+    for name, want in (("model.pt", det_eval), ("model3.pt", tf_eval)):
+        got = files[name][1]
+        if sorted(got) != sorted(want) or not all(
+                torch.equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"{name} differs from the checkpoint's "
+                                 f"eval weights")
+
+    # serve from the files
+    t0 = time.perf_counter()
+    pipe = run_ocr.build_pipeline(model_pt=files["model.pt"][0],
+                                  model3_pt=files["model3.pt"][0])
+    build_s = time.perf_counter() - t0
+    det_sd, dec_sd = torch_import.split_detector_state(det_eval)
+    if pipe.simple_decoder is None:
+        raise AssertionError("model.pt has decoder.* keys but the pipeline "
+                             "has no simple_decoder")
+    for name, module, want, cast in (
+            ("detector", pipe.detector, det_sd, torch.bfloat16),
+            ("transformer", pipe.transformer, tf_eval, None),
+            ("simple_decoder", pipe.simple_decoder, dec_sd, None)):
+        got = module.state_dict()
+        bad = sorted(set(got) ^ set(want)) + [
+            k for k in want if k in got and not torch.equal(
+                got[k].cpu(), want[k].to(cast or want[k].dtype)
+                if want[k].is_floating_point() else want[k])]
+        if bad:
+            raise AssertionError(f"{name}: loaded tensors differ from the "
+                                 f"eval weights: {bad[:5]}")
+    log(f"serve: run_ocr.build_pipeline loaded model.pt / model3.pt on the "
+        f"card in {build_s:.2f} s; every tensor equals the checkpoints' "
+        f"eval weights (the files bit for bit, the detector as their bf16 "
+        f"cast), simple_decoder present")
+
+    cfg = pipe.cfg
+    direct = OCRPipeline(cfg, detector_state=det_sd,
+                         transformer_state=tf_eval)
+    rng = np.random.default_rng(0)
+    img, raw_locs, lines, seps = synth_page_and_boxes(rng)
+    feats = rng.standard_normal(
+        (len(raw_locs), cfg.detector.feature_dim)).astype(np.float16)
+    lazy = LazyFeatures(torch.from_numpy(feats).to("cuda"),
+                        np.arange(len(raw_locs)))
+    locs, kept = pipe._filter_boxes(raw_locs, lazy, img, lines, seps,
+                                    np.zeros(lines.shape + (4,), np.float32))
+    realistic = DetectedPage(locs, kept, lines, seps)
+    n_chunks = len(pipe._chunk_sizes(len(pipe.tile_grid(*img.shape[:2])[2])))
+    dims = pipe.transformer.dims
+    served, counts, page_ms = {}, {}, {}
+    for name, p in (("from_files", pipe), ("direct", direct)):
+        p.transformer.set_attn_impl("fused")
+        p.detections_hook = lambda page_, image: realistic
+        # every attention site the decode reaches: one a block of each
+        # encode, two (self, cross) a block of each decode round
+        sites = {"n": 0}
+
+        def counted(fn, per_call, sites=sites):
+            def call(*a, **k):
+                sites["n"] += per_call
+                return fn(*a, **k)
+            return call
+
+        p.transformer.encode = counted(p.transformer.encode,
+                                       dims.enc_block_num)
+        p.transformer.decode_cached = counted(p.transformer.decode_cached,
+                                              2 * dims.dec_block_num)
+        p(img)                                           # warm-up
+        ts = []
+        for _ in range(2):
+            for c in (nms.launches, attention.launches):
+                c.reset()
+            sites["n"] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            served[name] = p(img)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+            counts[name] = {"nms_sigmoid_masked": nms.launches.count,
+                            "attention_fwd": attention.launches.count,
+                            "attention_sites": sites["n"]}
+        page_ms[name] = ts
+        del p.transformer.encode, p.transformer.decode_cached
+    del direct
+    if served["from_files"] != served["direct"]:
+        raise AssertionError("the page served from model.pt / model3.pt "
+                             "differs from the directly built pipeline's")
+    # the fused kernel must serve every attention site of the page
+    c = counts["from_files"]
+    if c["nms_sigmoid_masked"] != n_chunks or c["attention_fwd"] == 0 \
+            or c["attention_fwd"] != c["attention_sites"] \
+            or c != counts["direct"]:
+        raise AssertionError(f"served page launches {counts}")
+    log(f"serve: the page from the files == the directly built pipeline's "
+        f"field for field ({len(served['direct']['box'])} boxes, "
+        f"{len(served['direct']['text'])} chars); launches a page "
+        f"{json.dumps(c)} ({n_chunks} detector chunks); ms/page "
+        f"{json.dumps(page_ms)}")
+    pipe.detections_hook = None
+
+    # harvest with the served pipeline
+    fonts = find_fonts()
+    if fonts:
+        gen = PageGenerator(fonts, seed=0)
+        source = f"the port's PageGenerator over {len(fonts)} fonts"
+    else:
+        gen = SynthHarvestPages(seed=0)
+        source = ("no fonts on this machine (find_fonts() is empty): the "
+                  "synthetic 2048x1448 page of synth_page_and_boxes")
+    bank_dir = os.path.join(CKPT_ROOT, "train_data3", "code_features")
+    harvester = FeatureHarvester(pipe, gen, bank_dir, seed=0)
+    detections = []
+    run_detector = pipe.run_detector
+
+    def counting(image, twopass=False):
+        page = run_detector(image, twopass=twopass)
+        detections.append(len(page.locations))
+        return page
+
+    pipe.run_detector = counting
+    pages = []
+    for i in range(HARVEST_PAGES):
+        nms.launches.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        matched = harvester.harvest_page()
+        torch.cuda.synchronize()
+        pages.append(dict(page=i, detections=detections[-1],
+                          matched=matched, nms=nms.launches.count,
+                          ms=(time.perf_counter() - t0) * 1e3))
+        log(f"harvest page: {json.dumps(pages[-1])}")
+    pipe.run_detector = run_detector
+    harvester.flush()
+    total = sum(p["matched"] for p in pages)
+    log(f"harvest: {HARVEST_PAGES} pages from {source}; {total} vectors "
+        f"matched")
+    if total == 0:
+        raise AssertionError("the harvest matched no vector")
+    npz = os.path.join(CKPT_ROOT, "train_data3", "features.npz")
+    keys = save_feature_bank(bank_dir, npz)
+    bank = FeatureBank.load(npz)
+    n_vec = sum(len(v) for v in bank.hori.values()) + sum(
+        len(v) for v in bank.vert.values())
+    if n_vec != total or not bank.codes:
+        raise AssertionError(f"packed bank holds {n_vec} vectors of "
+                             f"{total}")
+    batch = next(TransformerDataset(bank, seed=0).batches(4))
+    shapes = {k: list(v.shape) for k, v in batch.items()}
+    t = cfg.transformer
+    if shapes != {"encoder_input": [4, t.max_enc_seq_len, t.enc_input_dim],
+                  "decoder_input": [4, t.max_dec_seq_len],
+                  "decoder_true": [4, t.max_dec_seq_len]} or \
+            not np.isfinite(batch["encoder_input"]).all():
+        raise AssertionError(f"train3 batch from the bank: {shapes}")
+    log(f"harvest: features.npz {os.path.getsize(npz)} bytes, {len(keys)} "
+        f"banks ({len(bank.hcodes)} horizontal, {len(bank.vcodes)} "
+        f"vertical codes), {n_vec} vectors; a train3 batch {shapes}")
+    del pipe
+    torch.cuda.empty_cache()
+    log(f"weights loop phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def device_path_reference():
@@ -1964,13 +2228,19 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     results = phase_main_path()
-    train_launches = phase_training()
-    state, batches, det = phase_detector_training()
-    phase_detector_loader(state)
-    del state
-    if whole_batch:
-        phase_detector_whole_batch(det, batches)
-    del batches
+    try:
+        train_launches, tf_ckpt = phase_training()
+        state, batches, det = phase_detector_training()
+        phase_detector_loader(state)
+        det_ckpt = save_state(state, None, "train1")
+        del state
+        torch.cuda.empty_cache()
+        if whole_batch:
+            phase_detector_whole_batch(det, batches)
+        del batches
+        phase_weights_loop(det_ckpt, tf_ckpt)
+    finally:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     phase_reference()
     launches = results["fused"]["launches"]
     kernels_line = []

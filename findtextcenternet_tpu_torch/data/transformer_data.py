@@ -185,7 +185,7 @@ _KATAKANA = [chr(c) for c in range(0x30A1, 0x30FB)]
 # ranges). Class keys follow the reference: 3=hiragana, 4=katakana,
 # 5=common kanji, 8/9/10=rarer kanji tiers.
 def _jp_pools():
-    from .charpools import KANJI_COMMON
+    from ..factory.charpools import KANJI_COMMON
     common = list(KANJI_COMMON)
     common_set = set(common)
     rare = [chr(c) for c in range(0x4E00, 0x9FA0)

@@ -1,8 +1,9 @@
 """Build the native host libraries (line engine, host ops, the training
-augmenter) at first use.
+augmenter, the glyph rasterizer of the page factory) at first use.
 
 The sources are the repository's ``native/lineengine/src``,
-``native/hostops/src`` and ``native/augment``; the shared libraries go to the port's own
+``native/hostops/src``, ``native/augment`` and ``native/rasterizer/src``;
+the shared libraries go to the port's own
 ``build/native/`` (listed in ``.gitignore``), named by a hash of the
 sources, the compiler's version and the C library (:mod:`..shlib`). Each
 source compiles in its own ``g++`` process (all started together) with the
@@ -37,6 +38,7 @@ LIBRARIES: Dict[str, Tuple[str, Tuple[str, ...], Tuple[str, ...]]] = {
                    ("engine.h", "types.h", "lm.h")),
     "hostops": ("hostops/src", ("hostops.cpp",), ()),
     "augment": ("augment", ("augment.cpp",), ()),
+    "rasterizer": ("rasterizer/src", ("ttf.cpp", "capi.cpp"), ("ttf.h",)),
 }
 
 _lock = threading.Lock()

@@ -43,7 +43,7 @@ import torch.nn.functional as F
 from ..config import Config
 from ..const import FEATURE_DIM, MAX_ENCODER_LEN, SCALE
 from ..device import resolve_device
-from ..models.detector import CenterNetDetection
+from ..models.detector import CenterNetDetection, SimpleDecoder
 from ..models.init import init_flax_defaults_
 from ..models.transformer import Transformer, TransformerDims, mask_predict
 from ..ops.kernels import LaunchCounter
@@ -328,9 +328,35 @@ class OCRPipeline:
             mask_predict, self.transformer, max_rounds=mp.max_rounds,
             topk=mp.topk, remask_threshold=mp.remask_threshold,
             early_stop_threshold=mp.early_stop_threshold)
+        # the CRT auxiliary classifier of a ``model.pt`` that has one
+        # (:meth:`from_torch_checkpoints`), for per-box decoding in tools
+        self.simple_decoder: Optional[SimpleDecoder] = None
         self.mosaic_merges = LaunchCounter("mosaic_merges")
         self.feature_gathers = LaunchCounter("feature_gathers")
         self.readback_bytes = LaunchCounter("readback_bytes")
+
+    @classmethod
+    def from_torch_checkpoints(cls, model_pt: str, model3_pt: str,
+                               config: Config = Config(),
+                               model_size: Optional[str] = None,
+                               device=None) -> "OCRPipeline":
+        """A pipeline on the weights of reference-format checkpoints:
+        ``model.pt`` (the ``TextDetectorModel``: the detector and, when the
+        file has ``decoder.*`` keys, the ``SimpleDecoder``, loaded as
+        :attr:`simple_decoder` in f32) and ``model3.pt`` (the
+        ``Transformer``). Every key must load (``strict``)."""
+        from ..io.torch_import import load_torch_state_dict, \
+            split_detector_state
+        det_sd, dec_sd = split_detector_state(load_torch_state_dict(model_pt))
+        self = cls(config, detector_state=det_sd,
+                   transformer_state=load_torch_state_dict(model3_pt),
+                   model_size=model_size, device=device)
+        if dec_sd:
+            sd = SimpleDecoder(config.detector.feature_dim,
+                               config.detector.decoder_mid_dim)
+            sd.load_state_dict(dec_sd)
+            self.simple_decoder = sd.to(self.device).eval()
+        return self
 
     @property
     def _lazy_features(self) -> bool:

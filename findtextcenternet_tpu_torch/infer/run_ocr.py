@@ -2,20 +2,28 @@
 
 Usage:
     python -m findtextcenternet_tpu_torch.infer.run_ocr [--resize=F]
-        [--model-size=xl] [--tiny] [--random-weights] [--twopass]
-        [--device cuda|cpu] images...
+        [--model-size=xl] [--model-pt=path] [--model3-pt=path]
+        [--random-weights] [--tiny] [--twopass] [--device cuda|cpu]
+        images...
 
-Weights: this slice of the port loads no checkpoint files; it runs with
-random weights drawn like flax's defaults (smoke mode), as the JAX CLI's
-``--random-weights`` does. ``--tiny`` swaps in the small smoke config of the
-JAX CLI (tiny backbone, 256-px tiles, a 32-d 1+1-block transformer). The
-GPU is the default device; ``--device cpu`` runs on the CPU.
+Weights: as the JAX CLI, ``model.pt`` / ``model3.pt`` in the working
+directory by default, or the files ``--model-pt`` / ``--model3-pt`` name,
+reference-format checkpoints (``io/torch_export.py`` writes them from the
+port's training checkpoints). Random weights drawn like flax's defaults
+(smoke mode) only when a file is absent or ``--random-weights`` is given.
+``--tiny`` swaps in the small smoke config of the JAX CLI (tiny backbone,
+256-px tiles, a 32-d 1+1-block transformer) with random weights;
+``--model-size=tiny`` loads files into that config. ``--onnx-dir`` and
+``--coreml-dir`` (the exported-artifact backends) are not ported yet and
+raise; any other unknown flag exits with status 2. The GPU is the default
+device; ``--device cpu`` runs on the CPU.
 """
 from __future__ import annotations
 
 import dataclasses
 import glob
 import json
+import os
 import sys
 
 from ..config import Config
@@ -23,9 +31,21 @@ from ..utils.text import decode_ruby
 from .pipeline import OCRPipeline, ocr_file, ocr_pages
 
 
-def build_pipeline(model_size: str = "xl", device=None,
+def build_pipeline(model_size: str = "xl", model_pt: str = "model.pt",
+                   model3_pt: str = "model3.pt",
+                   random_weights: bool = False,
+                   onnx_dir: str | None = None,
+                   coreml_dir: str | None = None, device=None,
                    seed: int = 0) -> OCRPipeline:
-    """A random-weight pipeline; ``tiny`` uses the fast smoke config."""
+    """An OCRPipeline as the CLI builds it: the reference checkpoints when
+    both files exist and ``random_weights`` is off, else random weights
+    from ``seed``; ``tiny`` uses the fast smoke config."""
+    if onnx_dir or coreml_dir:
+        raise NotImplementedError(
+            "--onnx-dir / --coreml-dir: the exported-artifact backends are "
+            "not yet ported to findtextcenternet_tpu_torch (ROADMAP.md "
+            "Queue 1); serve the .pt checkpoints with --model-pt / "
+            "--model3-pt")
     cfg = Config()
     if model_size != cfg.detector.model_size:
         cfg = dataclasses.replace(
@@ -45,15 +65,25 @@ def build_pipeline(model_size: str = "xl", device=None,
                 max_peaks_per_tile=64),
             mask_predict=dataclasses.replace(cfg.mask_predict,
                                              max_rounds=2))
-    return OCRPipeline(cfg, model_size=model_size, seed=seed, device=device)
+    if not random_weights and os.path.exists(model_pt) and \
+            os.path.exists(model3_pt):
+        pipeline = OCRPipeline.from_torch_checkpoints(
+            model_pt, model3_pt, cfg, model_size, device=device)
+        print(f"loaded weights: {model_pt}, {model3_pt}")
+    else:
+        pipeline = OCRPipeline(cfg, model_size=model_size, seed=seed,
+                               device=device)
+        print("using random weights (smoke mode)")
+    return pipeline
 
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     resize = 1.0
     model_size = "xl"
-    twopass = False
-    device = None
+    model_pt, model3_pt = "model.pt", "model3.pt"
+    random_weights = twopass = False
+    onnx_dir = coreml_dir = device = None
     files = []
     it = iter(argv)
     for a in it:
@@ -61,16 +91,28 @@ def main(argv=None):
             resize = float(a.split("=", 1)[1])
         elif a.startswith("--model-size="):
             model_size = a.split("=", 1)[1]
+        elif a.startswith("--model-pt="):
+            model_pt = a.split("=", 1)[1]
+        elif a.startswith("--model3-pt="):
+            model3_pt = a.split("=", 1)[1]
+        elif a.startswith("--onnx-dir="):
+            onnx_dir = a.split("=", 1)[1]
+        elif a.startswith("--coreml-dir="):
+            coreml_dir = a.split("=", 1)[1]
         elif a.startswith("--device="):
             device = a.split("=", 1)[1]
         elif a == "--device":
             device = next(it, None)
         elif a == "--random-weights":
-            pass   # the only weights this CLI has
+            random_weights = True
         elif a == "--twopass":
             twopass = True
         elif a == "--tiny":
             model_size = "tiny"
+            random_weights = True
+        elif a.startswith("--"):
+            print(f"run_ocr: unknown flag {a}", file=sys.stderr)
+            return 2
         else:
             files.extend(glob.glob(a))
 
@@ -78,8 +120,9 @@ def main(argv=None):
         print(__doc__)
         return 1
 
-    pipeline = build_pipeline(model_size, device=device)
-    print("using random weights (smoke mode)")
+    pipeline = build_pipeline(model_size, model_pt, model3_pt,
+                              random_weights, onnx_dir, coreml_dir,
+                              device=device)
 
     if len(files) > 1:
         import numpy as np

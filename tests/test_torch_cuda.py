@@ -655,3 +655,62 @@ def test_bucketed_decode_on_card_equals_cpu(cuda):
     gpu.feature_gathers.reset()
     assert gpu.decode_windows(stream, windows) == want
     assert gpu.feature_gathers.count >= 1
+
+def test_from_torch_checkpoints_on_card_equals_cpu(cuda, tmp_path):
+    """A tiny ``model.pt`` / ``model3.pt`` served on the card and on the
+    CPU: the same tensors load on both, and with the detector in f32 (its
+    bf16 weights cast back, the same values on both sides) the page gives
+    the same boxes (to the convolutions' summation order) and texts."""
+    from findtextcenternet_tpu_torch.infer import run_ocr
+    from findtextcenternet_tpu_torch.io.torch_export import \
+        save_torch_checkpoint
+    from findtextcenternet_tpu_torch.models.detector import TextDetectorModel
+
+    cfg = run_ocr.build_pipeline("tiny", random_weights=True,
+                                 device="cpu").cfg
+    gen = torch.Generator().manual_seed(11)
+    det = init_flax_defaults_(TextDetectorModel(
+        "tiny", cfg.detector.feature_dim, cfg.detector.decoder_mid_dim), gen)
+    t = cfg.transformer
+    tf = init_flax_defaults_(Transformer(TransformerDims(
+        t.enc_input_dim, t.embed_dim, t.head_num, t.enc_block_num,
+        t.dec_block_num, t.max_enc_seq_len, t.max_dec_seq_len)), gen)
+    model_pt, model3_pt = str(tmp_path / "model.pt"), str(tmp_path /
+                                                          "model3.pt")
+    save_torch_checkpoint(model_pt, det.state_dict())
+    save_torch_checkpoint(model3_pt, tf.state_dict())
+    pipes = {d: run_ocr.build_pipeline("tiny", model_pt, model3_pt, device=d)
+             for d in ("cpu", cuda)}
+    for name in ("detector", "transformer", "simple_decoder"):
+        a = getattr(pipes["cpu"], name).state_dict()
+        b = getattr(pipes[cuda], name).state_dict()
+        assert sorted(a) == sorted(b)
+        assert all(torch.equal(a[k], b[k].cpu()) for k in a), name
+    rng = np.random.default_rng(4)
+    img = rng.integers(150, 256, (300, 500, 3)).astype(np.uint8)
+    for i in range(6):
+        img[100:140, 40 + 70 * i:80 + 70 * i] = rng.integers(0, 60,
+                                                             (40, 40, 3))
+    out = {}
+    for d, p in pipes.items():
+        p.detector.float()
+        out[d] = (p.run_detector(img), p(img))
+    (dcpu, want), (dgpu, got) = out["cpu"], out[cuda]
+    assert len(dcpu.locations) > 0
+    assert dgpu.locations.shape == dcpu.locations.shape
+    np.testing.assert_allclose(dgpu.locations, dcpu.locations, atol=1e-3,
+                               rtol=1e-4)
+    assert got["text"] == want["text"]
+
+
+def test_native_rasterizer_builds_on_the_card_machine(cuda):
+    """The page factory's glyph engine builds from ``native/rasterizer/src``
+    into the port's build directory and loads (fonts are not needed for
+    that: a path that is no font opens as null)."""
+    from findtextcenternet_tpu_torch.factory import rasterizer
+    from findtextcenternet_tpu_torch.infer import native
+
+    path = rasterizer.build_native_rasterizer()
+    assert path.startswith(native.BUILD_DIR)
+    lib = rasterizer._load_rast_lib()
+    assert lib.rast_open(b"/nonexistent.ttf", 32.0, 0, 0, 0) is None
