@@ -123,7 +123,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    fonts, else the synthetic page of ``synth_page_and_boxes`` with its
    boxes as ground truth. The bank is packed by ``save_feature_bank``,
    loaded by ``FeatureBank.load`` and drawn from for a train3 batch.
-8. Reference check on a small input: the tiny detector and a tiny
+8. Deployment artifacts at full width, from phase 7's ``model.pt`` /
+   ``model3.pt``: the ONNX artifacts through the port's ``onnx_models``
+   CLI (f32; ``--int8`` calibrated through ``--calib-npy`` on the serving
+   page's 12 tiles; a ``--fp16`` set), bytes and seconds of each; the
+   ``torch.export`` programs through ``export_models`` (bytes, seconds, the
+   self-test's error). The serving page, under phase 7's detections hook,
+   through ``run_ocr.build_pipeline(onnx_dir=)``,
+   ``build_pipeline(coreml_dir=)`` and ``OCRPipeline.from_exported``, each
+   against a live pipeline on the same files with an f32 detector: one
+   8-tile chunk's heatmap and features and the encoder output within
+   1e-3 x max(1, |ref|), the decoder probabilities of the page's first
+   decode batch within 1e-5, the output dict equal, the NMS kernel twice
+   a page; ms/page (median of 3) with its ``run_detector`` and decode
+   times, readback bytes, peak memory. The fp16
+   detector graph on one tile on the card against the evaluator on the
+   CPU (1e-3 x max(1, |ref|), the peak channel left out), the int8 graph
+   node by node (QuantizeLinear integers equal), with the CPU seconds.
+9. Reference check on a small input: the tiny detector and a tiny
    Transformer on the GPU against the same weights on the CPU, the tiny
    model's default page path against its host path on the GPU, bit for
    bit, on a page that yields detections, and a tiny bucketed decode on
@@ -2060,6 +2077,408 @@ def phase_weights_loop(det_ckpt: str, tf_ckpt: str):
     del pipe
     torch.cuda.empty_cache()
     log(f"weights loop phase: {time.perf_counter() - t_phase:.1f} s")
+    return files["model.pt"][0], files["model3.pt"][0]
+
+
+# tolerances of the artifact phase, on the card with TF32 off: the graphs
+# and the live f32 modules run the same f32 arithmetic in other orders
+# (separate BatchNorm nodes, interpolation-matrix resizes, MatMul graphs,
+# batch-1 calls), through ~100 layers for the detector
+ART_MAP_RTOL = 1e-3        # heatmap / features / encoder: x max(1, |ref|)
+ART_PROB_ATOL = 1e-5       # decoder probabilities, absolute
+ART_CALIB_TILES = 12       # the serving page's tiles calibrate --int8
+ART_PAGES = 3              # timed pages a backend (the first warms up)
+
+
+def _max_err(got, want) -> float:
+    """Max |got - want| over the finite entries of ``want`` (the -inf of a
+    suppressed peak must sit at the same places)."""
+    import torch
+    got, want = got.float(), want.float().to(got.device)
+    if not torch.equal(torch.isneginf(got), torch.isneginf(want)):
+        return float("inf")
+    fin = ~torch.isneginf(want)
+    return float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+
+
+def _scale(t) -> float:
+    """max(1, max |t|) over the finite entries."""
+    import torch
+    fin = t[torch.isfinite(t)]
+    return max(1.0, float(fin.abs().max())) if fin.numel() else 1.0
+
+
+def _gate(name: str, err: float, bound: float) -> dict:
+    log(f"artifacts: {name} max_abs_err {err:.3e} (bound {bound:.3e})")
+    if not err <= bound:
+        raise AssertionError(f"{name}: {err} > {bound}")
+    return {"max_abs_err": err, "bound": bound}
+
+
+def _cli(fn, argv) -> str:
+    """Run a CLI ``main(argv)`` and return (and log) what it printed."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"  {line}")
+    return out
+
+
+def _node_by_node(blob: bytes, image) -> dict:
+    """The static-int8 detector graph op by op: each node on the card, fed
+    the CPU evaluator's values of its inputs, against the CPU node (the
+    plain version). QuantizeLinear integers must be equal; the other
+    nodes within ART_MAP_RTOL x max(1, |ref|). A whole-graph comparison
+    would let f32 noise cross a rounding boundary and move one step."""
+    import torch
+    from findtextcenternet_tpu_torch.export.onnx_writer import (
+        OnnxEvaluator, to_tensor)
+
+    cpu, gpu = OnnxEvaluator(blob, "cpu"), OnnxEvaluator(blob, "cuda")
+    env = {"image": to_tensor(image, "cpu")}
+    worst, n_q = 0.0, 0
+    t0 = time.perf_counter()
+    cpu_s = 0.0
+    with torch.inference_mode():
+        for i, node in enumerate(cpu.m["nodes"]):
+            args = [(env[n] if n in env else cpu.inits[n]) if n else None
+                    for n in node["inputs"]]
+            gargs = [(gpu.inits[n] if n in gpu.inits else
+                      args[k].to("cuda")) if n else None
+                     for k, n in enumerate(node["inputs"])]
+            c0 = time.perf_counter()
+            want = cpu.run_node(node, args)[0]
+            cpu_s += time.perf_counter() - c0
+            got = gpu.run_node(node, gargs)[0]
+            ref = want.to("cuda")
+            if node["op"] == "QuantizeLinear" or \
+                    not want.is_floating_point():
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"int8 node {i} {node['op']} "
+                                         f"differs from the CPU's")
+                n_q += node["op"] == "QuantizeLinear"
+            else:
+                err = _max_err(got, ref) / _scale(ref)
+                if not err <= ART_MAP_RTOL:
+                    raise AssertionError(f"int8 node {i} {node['op']}: "
+                                         f"{err} > {ART_MAP_RTOL}")
+                worst = max(worst, err)
+            env[node["outputs"][0]] = want
+            for n in node["inputs"]:
+                if n and cpu.last.get(n) == i:
+                    env.pop(n, None)
+    return {"nodes": len(cpu.m["nodes"]), "quantize_nodes": n_q,
+            "worst_rel_err": worst, "cpu_s": cpu_s,
+            "s": time.perf_counter() - t0}
+
+
+def phase_artifacts(model_pt: str, model3_pt: str):
+    """The deployment artifacts at full width, from the weights loop's
+    ``model.pt`` / ``model3.pt`` (the xl detector, the 768-d 12-head
+    10+10-block Transformer at 400/400):
+
+    1. the ONNX artifacts through the port's ``onnx_models`` CLI (f32, a
+       ``--fp16`` set, and ``--int8`` calibrated on the serving page's
+       tiles through ``--calib-npy``): bytes and seconds of each;
+    2. the ``torch.export`` artifacts through ``export_models``: bytes,
+       seconds and the self-test's error;
+    3. the serving cell's page through ``run_ocr.build_pipeline(onnx_dir=)``
+       (ONNX sessions), ``build_pipeline(coreml_dir=)`` (the MIL mapping)
+       and ``OCRPipeline.from_exported``, each with the weights loop's
+       ``detections_hook``, held against a live pipeline on the same files
+       with an f32 detector: one chunk's heatmap and features, the encoder
+       output and the decoder probabilities of the page's first decode
+       batch within the stated tolerances, the output (boxes and text)
+       equal; the NMS kernel twice a page; ms/page (median of
+       ART_PAGES) with its stage times, readback bytes and peak memory of
+       each;
+    4. the fp16 and int8 detector graphs on one tile on the card against
+       the evaluator on the CPU (the plain version), with the CPU seconds.
+    """
+    import statistics
+
+    import torch
+
+    from findtextcenternet_tpu_torch.config import Config
+    from findtextcenternet_tpu_torch.const import MODULO_LIST
+    from findtextcenternet_tpu_torch.export import (
+        export_models, load_exported, onnx_models)
+    from findtextcenternet_tpu_torch.export.coreml_models import MilSession
+    from findtextcenternet_tpu_torch.export.onnx_writer import OnnxEvaluator
+    from findtextcenternet_tpu_torch.infer import run_ocr
+    from findtextcenternet_tpu_torch.infer.onnx_backend import (
+        ARTIFACT_NAMES, OnnxSession)
+    from findtextcenternet_tpu_torch.infer.pipeline import (
+        DetectedPage, LazyFeatures, OCRPipeline)
+    from findtextcenternet_tpu_torch.io.torch_import import (
+        load_torch_state_dict, split_detector_state)
+    from findtextcenternet_tpu_torch.models.detector import (
+        CenterNetDetection)
+    from findtextcenternet_tpu_torch.models.transformer import make_key_mask
+    from findtextcenternet_tpu_torch.ops import nms
+
+    t_phase = time.perf_counter()
+    root = os.path.join(CKPT_ROOT, "artifacts")
+    dirs = {k: os.path.join(root, k) for k in ("onnx", "fp16", "exported")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    cfg = Config()
+    record = {}
+
+    # the live f32 reference on the same files, and the serving page
+    det_sd, _ = split_detector_state(load_torch_state_dict(model_pt))
+    det32 = CenterNetDetection(cfg.detector.model_size,
+                               cfg.detector.feature_dim)
+    det32.load_state_dict(det_sd)
+    det32 = det32.to("cuda").eval()
+    tf_sd = load_torch_state_dict(model3_pt)
+    live = OCRPipeline(cfg, transformer_state=tf_sd, detector_apply=det32)
+    rng = np.random.default_rng(0)
+    img, raw_locs, lines, seps = synth_page_and_boxes(rng)
+    feats = rng.standard_normal(
+        (len(raw_locs), cfg.detector.feature_dim)).astype(np.float16)
+    lazy = LazyFeatures(torch.from_numpy(feats).to("cuda"),
+                        np.arange(len(raw_locs)))
+    locs, kept = live._filter_boxes(
+        raw_locs, lazy, img, lines, seps,
+        np.zeros(lines.shape + (4,), np.float32))
+    realistic = DetectedPage(locs, kept, lines, seps)
+    padx, pady, offs, _ = live.tile_grid(*img.shape[:2])
+    padded = np.pad(img, [[0, pady], [0, padx], [0, 0]],
+                    constant_values=255)
+    ts = cfg.inference.tile_size
+    tiles = np.stack([padded[y:y + ts, x:x + ts] for x, y in offs])
+    n_chunks = len(live._chunk_sizes(len(offs)))
+
+    # 1. ONNX artifacts through the CLI
+    calib = os.path.join(root, "calib.npy")
+    np.save(calib, tiles[:ART_CALIB_TILES].astype(np.float32) / 255.0)
+    log("artifacts: onnx_models CLI (f32 + int8, calibrated on "
+        f"{min(ART_CALIB_TILES, len(tiles))} page tiles)")
+    t0 = time.perf_counter()
+    _cli(onnx_models.main, [f"--detector-ckpt={model_pt}",
+                            f"--transformer-ckpt={model3_pt}",
+                            f"--outdir={dirs['onnx']}", "--int8",
+                            f"--calib-npy={calib}"])
+    record["onnx_write_s"] = time.perf_counter() - t0
+    log("artifacts: onnx_models CLI --fp16")
+    t0 = time.perf_counter()
+    _cli(onnx_models.main, [f"--detector-ckpt={model_pt}",
+                            f"--transformer-ckpt={model3_pt}",
+                            f"--outdir={dirs['fp16']}", "--fp16"])
+    record["fp16_write_s"] = time.perf_counter() - t0
+    record["bytes"] = {f"{k}/{n}": os.path.getsize(os.path.join(dirs[k], n))
+                       for k in ("onnx", "fp16")
+                       for n in sorted(os.listdir(dirs[k]))}
+
+    # 2. torch.export artifacts through the CLI
+    log("artifacts: export_models CLI")
+    t0 = time.perf_counter()
+    out = _cli(export_models.main, [f"--out={dirs['exported']}",
+                                    f"--model-pt={model_pt}",
+                                    f"--model3-pt={model3_pt}"])
+    record["export_s"] = time.perf_counter() - t0
+    record["self_test"] = [ln for ln in out.splitlines()
+                           if ln.startswith("self-test")]
+    torch.cuda.empty_cache()
+
+    # 3. the page through each backend against the live f32 pipeline
+    def onnx_bytes(name):
+        with open(os.path.join(dirs["onnx"], ARTIFACT_NAMES[name]),
+                  "rb") as f:
+            return f.read()
+
+    chunk = torch.from_numpy(tiles[:cfg.inference.detector_batch]).to(
+        "cuda").float() / 255.0
+    with torch.inference_mode():
+        ref_heat, ref_feat = det32(chunk)
+    captured = {}
+
+    def serve(name, pipe):
+        """ART_PAGES timed pages under the realistic detections (the median
+        leaves out the first call's warm-up), with the medians of
+        ``run_detector`` and ``decode_windows`` (the device synchronised
+        around each) and the detector's own detections before the hook;
+        returns the page and its numbers. No profiled page: the profiler's
+        processing of a CoreML page's ~1e5 launches takes minutes."""
+        pipe.detections_hook = lambda page_, image: realistic
+        decode = pipe._decode
+
+        def capture(enc, **kw):
+            captured.setdefault(name, enc.clone())
+            return decode(enc, **kw)
+
+        pipe._decode = capture
+        stages = {"run_detector": [], "decode_windows": []}
+        found = []
+
+        def timed(stage):
+            fn = getattr(pipe, stage)
+
+            def call(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = fn(*a, **k)
+                torch.cuda.synchronize()
+                stages[stage].append((time.perf_counter() - t0) * 1e3)
+                if stage == "run_detector":
+                    found.append(len(res.locations))
+                return res
+            return call
+
+        for stage in stages:
+            setattr(pipe, stage, timed(stage))
+        ms, nms_n, rb = [], [], []
+        out = None
+        for _ in range(ART_PAGES):
+            nms.launches.reset()
+            pipe.readback_bytes.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            page = pipe(img)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            nms_n.append(nms.launches.count)
+            rb.append(pipe.readback_bytes.count)
+            if out is not None and page != out:
+                raise AssertionError(f"{name}: pages differ between runs")
+            out = page
+        for stage in stages:
+            delattr(pipe, stage)
+        pipe._decode = decode
+        return out, {
+            "ms_per_page": ms, "ms_median": statistics.median(ms),
+            "run_detector_ms": statistics.median(stages["run_detector"]),
+            "decode_ms": statistics.median(stages["decode_windows"]),
+            "own_detections": found[-1],
+            "nms_launches": nms_n, "readback_bytes": rb[-1]}
+
+    torch.cuda.reset_peak_memory_stats()
+    want, live_rec = serve("live", live)
+    live_rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    record["live_f32"] = live_rec
+    log(f"artifacts: live f32 pipeline {json.dumps(live_rec)}")
+    enc_in = captured["live"]
+    with torch.inference_mode():
+        ref_enc = live.transformer.encode(enc_in)
+        km = make_key_mask(enc_in)
+        tokens = torch.randint(0, 5000, enc_in.shape[:2],
+                               generator=torch.Generator().manual_seed(0)
+                               ).to("cuda")
+        ref_probs = [torch.softmax(lg, -1) for lg in
+                     live.transformer.decoder(tokens, ref_enc, km)]
+    del live, det32
+    torch.cuda.empty_cache()
+
+    backends = (
+        ("onnx", lambda: run_ocr.build_pipeline(onnx_dir=dirs["onnx"])),
+        ("coreml", lambda: run_ocr.build_pipeline(coreml_dir=dirs["onnx"])),
+        ("exported", lambda: OCRPipeline.from_exported(
+            *[os.path.join(dirs["exported"], k)
+              for k in ("detector", "encoder", "decoder")], cfg)))
+    for name, build in backends:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pipe = build()
+        build_s = time.perf_counter() - t0
+        # the artifact's encoder and decoder beside the live ones
+        if name == "onnx":
+            enc_s = OnnxSession(onnx_bytes("encoder"))
+            dec_s = OnnxSession(onnx_bytes("decoder"))
+        elif name == "coreml":
+            enc_s = MilSession(onnx_bytes("encoder"))
+            dec_s = MilSession(onnx_bytes("decoder"))
+        else:
+            enc_p = load_exported(os.path.join(dirs["exported"],
+                                               "encoder"))[0]
+            dec_p = load_exported(os.path.join(dirs["exported"],
+                                               "decoder"))[0]
+        with torch.inference_mode():
+            heat, feat = pipe._apply_fn(chunk)
+            if name == "exported":
+                enc_out = enc_p(enc_in)
+                probs = dec_p(tokens.to(torch.int32), ref_enc, km)
+                del enc_p, dec_p
+            else:
+                enc_out = enc_s(encoder_input=enc_in,
+                                key_mask=km)["encoder_output"]
+                out = dec_s(encoder_output=ref_enc, decoder_input=tokens,
+                            key_mask=km)
+                probs = [out[f"modulo_{m}"] for m in MODULO_LIST]
+                del enc_s, dec_s
+        rec = {"build_s": build_s}
+        rec["heatmap"] = _gate(f"{name} chunk heatmap",
+                               _max_err(heat, ref_heat),
+                               ART_MAP_RTOL * _scale(ref_heat))
+        rec["features"] = _gate(f"{name} chunk features",
+                                _max_err(feat, ref_feat),
+                                ART_MAP_RTOL * _scale(ref_feat))
+        rec["encoder"] = _gate(f"{name} encoder output",
+                               _max_err(enc_out, ref_enc),
+                               ART_MAP_RTOL * _scale(ref_enc))
+        rec["decoder"] = _gate(
+            f"{name} decoder probabilities",
+            max(_max_err(p, r) for p, r in zip(probs, ref_probs)),
+            ART_PROB_ATOL)
+        del heat, feat, enc_out, probs
+        got, page_rec = serve(name, pipe)
+        rec.update(page_rec)
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if got != want:
+            raise AssertionError(f"{name}: the page differs from the live "
+                                 f"f32 pipeline's")
+        if any(n != n_chunks for n in rec["nms_launches"]):
+            raise AssertionError(f"{name}: NMS launches "
+                                 f"{rec['nms_launches']}, want {n_chunks}")
+        record[name] = rec
+        log(f"artifacts: {name} page == live f32 page "
+            f"({len(got['box'])} boxes, {len(got['text'])} chars) "
+            f"{json.dumps(rec)}")
+        del pipe
+        torch.cuda.empty_cache()
+
+    # 4. the fp16 and int8 detector graphs on one tile, card vs CPU
+    tile = np.ascontiguousarray(
+        tiles[:1].transpose(0, 3, 1, 2).astype(np.float32) / 255.0)
+    with open(os.path.join(dirs["fp16"], "TextDetector.onnx"), "rb") as f:
+        blob = f.read()
+    t0 = time.perf_counter()
+    want = OnnxEvaluator(blob, "cpu")(image=tile)
+    fp16_cpu_s = time.perf_counter() - t0
+    got = OnnxEvaluator(blob, "cuda")(image=tile)
+    # the peak channel (1) is left out: a keymap value within f32 noise of
+    # a neighbour flips its -inf, and serving drops the channel anyway
+    keep = [0] + list(range(2, want["heatmap"].shape[1]))
+    heat_w, heat_g = want["heatmap"][:, keep], got["heatmap"][:, keep]
+    peaks_w = torch.isneginf(want["heatmap"][:, 1])
+    peaks_g = torch.isneginf(got["heatmap"][:, 1]).cpu()
+    rec = {"cpu_s": fp16_cpu_s,
+           "peak_channel_agreement": float((peaks_w == peaks_g).float()
+                                           .mean())}
+    rec["heatmap"] = _gate("fp16 detector heatmap (card vs CPU)",
+                           _max_err(heat_g, heat_w),
+                           ART_MAP_RTOL * _scale(heat_w))
+    rec["feature"] = _gate("fp16 detector features (card vs CPU)",
+                           _max_err(got["feature"], want["feature"]),
+                           ART_MAP_RTOL * _scale(want["feature"]))
+    record["fp16_tile"] = rec
+    del blob, want, got
+    with open(os.path.join(dirs["onnx"], "TextDetector.quant.onnx"),
+              "rb") as f:
+        blob = f.read()
+    record["int8_tile"] = _node_by_node(blob, tile)
+    log(f"artifacts: int8 detector node by node (card vs CPU) "
+        f"{json.dumps(record['int8_tile'])}")
+    del blob
+    torch.cuda.empty_cache()
+    record["phase_s"] = time.perf_counter() - t_phase
+    log(f"artifacts: {json.dumps(record)}")
+    log(f"artifact phase: {record['phase_s']:.1f} s")
+    return record
 
 
 def device_path_reference():
@@ -2238,7 +2657,7 @@ def main() -> int:
         if whole_batch:
             phase_detector_whole_batch(det, batches)
         del batches
-        phase_weights_loop(det_ckpt, tf_ckpt)
+        phase_artifacts(*phase_weights_loop(det_ckpt, tf_ckpt))
     finally:
         shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     phase_reference()

@@ -41,11 +41,13 @@ import torch
 import torch.nn.functional as F
 
 from ..config import Config
-from ..const import FEATURE_DIM, MAX_ENCODER_LEN, SCALE
+from ..const import FEATURE_DIM, MAX_ENCODER_LEN, MODULO_LIST, SCALE
 from ..device import resolve_device
 from ..models.detector import CenterNetDetection, SimpleDecoder
 from ..models.init import init_flax_defaults_
-from ..models.transformer import Transformer, TransformerDims, mask_predict
+from ..models.transformer import (Transformer, TransformerDims,
+                                  make_key_mask, mask_predict,
+                                  mask_predict_fns)
 from ..ops.kernels import LaunchCounter
 from ..ops.peaks import extract_peaks
 from ..utils.text import codes_to_text, decode_ruby
@@ -357,6 +359,128 @@ class OCRPipeline:
             sd.load_state_dict(dec_sd)
             self.simple_decoder = sd.to(self.device).eval()
         return self
+
+    @classmethod
+    def from_exported(cls, detector_dir: str, encoder_dir: str,
+                      decoder_dir: str, config: Config = Config(),
+                      model_size: Optional[str] = None,
+                      device=None) -> "OCRPipeline":
+        """A pipeline driven by ``torch.export`` artifacts
+        (:mod:`..export.export`) on ``device``: detection and mask-predict
+        decode call the saved programs, every other stage is shared — the
+        analog of the reference's alternate inference backends, which run
+        the deployed graphs instead of the live model
+        (``process_ocr_onnx.py:27-72``, ``run_ocr.py:5-21`` upstream).
+        Artifacts with a symbolic batch dim serve every tile-chunk and
+        window-bucket size."""
+        from ..export.export import load_exported
+
+        dev = resolve_device(device)
+        det, det_meta = load_exported(detector_dir, dev)
+        enc, _ = load_exported(encoder_dir, dev)
+        dec, _ = load_exported(decoder_dir, dev)
+        if det_meta["kind"] != "detector":
+            raise ValueError(f"{detector_dir}: kind {det_meta['kind']}")
+
+        def detector_apply(images):
+            # the program returns the 10-channel peak-suppressed map
+            # (keymap, peakmap, rest); peak extraction recomputes NMS from
+            # the keymap, so the peak channel is dropped
+            out10, features = det(images)
+            return torch.cat([out10[..., 0:1], out10[..., 2:]], -1), \
+                features
+
+        return cls(config, model_size=model_size,
+                   detector_apply=detector_apply,
+                   decode_fn=cls._artifact_decode(config, enc, dec),
+                   device=dev)
+
+    @classmethod
+    def from_onnx(cls, detector_onnx, encoder_onnx, decoder_onnx,
+                  config: Config = Config(),
+                  model_size: Optional[str] = None,
+                  device=None) -> "OCRPipeline":
+        """A pipeline driven by the ONNX artifacts (paths or bytes, written
+        by :mod:`..export.onnx_models`) — the reference's
+        ``process_ocr_onnx.py`` backend (``process_ocr_onnx.py:27-104``
+        upstream). Each graph runs in an :class:`.onnx_backend.OnnxSession`
+        on ``device``; their batch dim is symbolic, so tile chunks and
+        window buckets evaluate in one call."""
+        from .onnx_backend import OnnxSession
+
+        dev = resolve_device(device)
+        return cls._from_sessions(
+            OnnxSession(detector_onnx, dev), OnnxSession(encoder_onnx, dev),
+            OnnxSession(decoder_onnx, dev), config, model_size, dev)
+
+    @classmethod
+    def from_coreml(cls, detector_onnx, encoder_onnx, decoder_onnx,
+                    config: Config = Config(),
+                    model_size: Optional[str] = None,
+                    device=None) -> "OCRPipeline":
+        """A pipeline driven through the CoreML (MIL) op mapping of the ONNX
+        artifacts (paths or bytes) — the reference's
+        ``process_ocr_coreml.py`` backend
+        (``process_ocr_coreml.py:7-74`` upstream). Each artifact runs
+        under the deployed-mlpackage contract
+        (:class:`..export.coreml_models.MilSession`: per-sample batch-1
+        calls of the MIL op stream that ``convert_to_mlpackage`` emits,
+        int64 cast to int32) on ``device``."""
+        from ..export.coreml_models import MilSession
+
+        dev = resolve_device(device)
+        return cls._from_sessions(
+            MilSession(detector_onnx, dev), MilSession(encoder_onnx, dev),
+            MilSession(decoder_onnx, dev), config, model_size, dev)
+
+    @classmethod
+    def _from_sessions(cls, det, enc, dec, config: Config,
+                       model_size: Optional[str],
+                       device: torch.device) -> "OCRPipeline":
+        """Shared body of :meth:`from_onnx` and :meth:`from_coreml`: three
+        callable sessions as ``detector_apply`` / ``decode_fn``. The
+        sessions take and return tensors on the device, so nothing is read
+        back on the way."""
+        def detector_apply(images):
+            out = det(image=images.permute(0, 3, 1, 2).contiguous())
+            # the artifact heatmap is 10-channel (keymap, peak-suppressed
+            # keymap, rest); peak extraction recomputes NMS from the raw
+            # keymap, so the peak channel is dropped (as from_exported)
+            h10 = out["heatmap"].permute(0, 2, 3, 1)
+            heat9 = torch.cat([h10[..., :1], h10[..., 2:]], dim=-1)
+            return heat9, out["feature"].permute(0, 2, 3, 1)
+
+        def encode(e_in):
+            return enc(encoder_input=e_in,
+                       key_mask=make_key_mask(e_in))["encoder_output"]
+
+        def decode(d_in, e_out, km):
+            out = dec(encoder_output=e_out, decoder_input=d_in.long(),
+                      key_mask=km)
+            return tuple(out[f"modulo_{m}"] for m in MODULO_LIST)
+
+        return cls(config, model_size=model_size,
+                   detector_apply=detector_apply,
+                   decode_fn=cls._artifact_decode(config, encode, decode),
+                   device=device)
+
+    @staticmethod
+    def _artifact_decode(config: Config, encode, decode) -> Callable:
+        """``decode_fn`` running :func:`mask_predict_fns` over an
+        artifact's ``encode(enc_input)`` and ``decode(dec_input,
+        enc_output, key_mask)`` -> per-modulus probabilities, at the
+        production decode length."""
+        mp = config.mask_predict
+
+        def decode_fn(enc_input):
+            return mask_predict_fns(
+                encode, decode, enc_input,
+                config.transformer.max_dec_seq_len,
+                max_rounds=mp.max_rounds, topk=mp.topk,
+                remask_threshold=mp.remask_threshold,
+                early_stop_threshold=mp.early_stop_threshold)
+
+        return decode_fn
 
     @property
     def _lazy_features(self) -> bool:

@@ -4,7 +4,7 @@ Usage:
     python -m findtextcenternet_tpu_torch.infer.run_ocr [--resize=F]
         [--model-size=xl] [--model-pt=path] [--model3-pt=path]
         [--random-weights] [--tiny] [--twopass] [--device cuda|cpu]
-        images...
+        [--onnx-dir=DIR | --coreml-dir=DIR] images...
 
 Weights: as the JAX CLI, ``model.pt`` / ``model3.pt`` in the working
 directory by default, or the files ``--model-pt`` / ``--model3-pt`` name,
@@ -13,10 +13,13 @@ port's training checkpoints). Random weights drawn like flax's defaults
 (smoke mode) only when a file is absent or ``--random-weights`` is given.
 ``--tiny`` swaps in the small smoke config of the JAX CLI (tiny backbone,
 256-px tiles, a 32-d 1+1-block transformer) with random weights;
-``--model-size=tiny`` loads files into that config. ``--onnx-dir`` and
-``--coreml-dir`` (the exported-artifact backends) are not ported yet and
-raise; any other unknown flag exits with status 2. The GPU is the default
-device; ``--device cpu`` runs on the CPU.
+``--model-size=tiny`` loads files into that config. ``--onnx-dir`` serves
+the ONNX artifacts of a directory (``TextDetector.onnx``,
+``TransformerEncoder.onnx``, ``TransformerDecoder.onnx``, as
+``export/onnx_models.py`` writes them) and ``--coreml-dir`` the same
+graphs through the CoreML (MIL) mapping; the two are mutually exclusive.
+Any other unknown flag exits with status 2. The GPU is the default device;
+``--device cpu`` runs on the CPU.
 """
 from __future__ import annotations
 
@@ -37,15 +40,15 @@ def build_pipeline(model_size: str = "xl", model_pt: str = "model.pt",
                    onnx_dir: str | None = None,
                    coreml_dir: str | None = None, device=None,
                    seed: int = 0) -> OCRPipeline:
-    """An OCRPipeline as the CLI builds it: the reference checkpoints when
-    both files exist and ``random_weights`` is off, else random weights
-    from ``seed``; ``tiny`` uses the fast smoke config."""
-    if onnx_dir or coreml_dir:
-        raise NotImplementedError(
-            "--onnx-dir / --coreml-dir: the exported-artifact backends are "
-            "not yet ported to findtextcenternet_tpu_torch (ROADMAP.md "
-            "Queue 1); serve the .pt checkpoints with --model-pt / "
-            "--model3-pt")
+    """An OCRPipeline as the CLI builds it: the artifacts of ``onnx_dir``
+    (ONNX sessions) or ``coreml_dir`` (the CoreML MIL mapping) when one is
+    given, else the reference checkpoints when both files exist and
+    ``random_weights`` is off, else random weights from ``seed``; ``tiny``
+    uses the fast smoke config."""
+    if onnx_dir and coreml_dir:
+        raise ValueError(
+            "--onnx-dir and --coreml-dir are mutually exclusive backends; "
+            "pass exactly one")
     cfg = Config()
     if model_size != cfg.detector.model_size:
         cfg = dataclasses.replace(
@@ -65,7 +68,17 @@ def build_pipeline(model_size: str = "xl", model_pt: str = "model.pt",
                 max_peaks_per_tile=64),
             mask_predict=dataclasses.replace(cfg.mask_predict,
                                              max_rounds=2))
-    if not random_weights and os.path.exists(model_pt) and \
+    if onnx_dir or coreml_dir:
+        from .onnx_backend import ARTIFACT_NAMES
+        art_dir = onnx_dir or coreml_dir
+        paths = [os.path.join(art_dir, ARTIFACT_NAMES[k])
+                 for k in ("detector", "encoder", "decoder")]
+        build = OCRPipeline.from_coreml if coreml_dir else \
+            OCRPipeline.from_onnx
+        pipeline = build(*paths, cfg, model_size, device=device)
+        print(f"loaded artifacts from {art_dir} "
+              f"({'CoreML MIL' if coreml_dir else 'ONNX'} backend)")
+    elif not random_weights and os.path.exists(model_pt) and \
             os.path.exists(model3_pt):
         pipeline = OCRPipeline.from_torch_checkpoints(
             model_pt, model3_pt, cfg, model_size, device=device)

@@ -151,15 +151,19 @@ def text_detector_state_from_flax(variables: dict, model_size: str = "xl"
         if prefix == "detector":
             _detector(s, model_size)
         else:
-            for bi in range(len(MODULO_LIST)):
-                t = f"blocks.{bi}"
-                s.linear(f"{t}.0", (f"block{bi}_fc0",), bias=False)
-                s.bn(f"{t}.1", (f"block{bi}_bn0",))
-                s.linear(f"{t}.3", (f"block{bi}_fc1",), bias=False)
-                s.bn(f"{t}.4", (f"block{bi}_bn1",))
-                s.linear(f"{t}.6", (f"block{bi}_out",))
+            _simple_decoder(s)
         sd.update({f"{prefix}.{k}": v for k, v in s.sd.items()})
     return sd
+
+
+def _simple_decoder(s):
+    for bi in range(len(MODULO_LIST)):
+        t = f"blocks.{bi}"
+        s.linear(f"{t}.0", (f"block{bi}_fc0",), bias=False)
+        s.bn(f"{t}.1", (f"block{bi}_bn0",))
+        s.linear(f"{t}.3", (f"block{bi}_fc1",), bias=False)
+        s.bn(f"{t}.4", (f"block{bi}_bn1",))
+        s.linear(f"{t}.6", (f"block{bi}_out",))
 
 
 def _mha(s: _Sink, key: str, path, cross: bool, key_tables: bool):
@@ -191,6 +195,11 @@ def transformer_state_from_flax(variables: dict,
     optimizer's parameters (``train.state.trainable_parameters``).
     """
     s = _Sink(variables.get("params", variables), {})
+    _transformer(s, dims, key_tables)
+    return s.sd
+
+
+def _transformer(s, dims: TransformerDims, key_tables: bool):
     enc = ("encoder",)
     s.linear("encoder.embed", enc + ("embed",), bias=False)
     s.raw("encoder.pos_emb.encoding", enc + ("pos_emb", "table"))
@@ -217,7 +226,86 @@ def transformer_state_from_flax(variables: dict,
         _swiglu(s, f"{t}.ff", f + ("ff",))
     for k in range(len(MODULO_LIST)):
         s.linear(f"decoder.out_layers.{k}", dec + (f"out{k}",))
-    return s.sd
+
+
+class _Paths:
+    """The key schedule of :class:`_Sink` run without a tree: records the
+    flax path of every port key (BatchNorm statistics under their
+    ``batch_stats`` names, ``num_batches_tracked`` beside them)."""
+
+    def __init__(self):
+        self.paths: Dict[str, str] = {}
+
+    def _rec(self, key, path):
+        self.paths[key] = "/".join(path)
+
+    def conv(self, key, path, bias=False):
+        self._rec(key + ".weight", path + ("kernel",))
+        if bias:
+            self._rec(key + ".bias", path + ("bias",))
+
+    def linear(self, key, path, bias=True):
+        self.conv(key, path, bias)
+
+    def bn(self, key, path):
+        for k, f in (("weight", "scale"), ("bias", "bias"),
+                     ("running_mean", "mean"), ("running_var", "var"),
+                     ("num_batches_tracked", "num_batches_tracked")):
+            self._rec(f"{key}.{k}", path + (f,))
+
+    def ln(self, key, path):
+        self._rec(key + ".weight", path + ("scale",))
+        self._rec(key + ".bias", path + ("bias",))
+
+    def raw(self, key, path):
+        self._rec(key, path)
+
+
+def _blocks(keys, prefix: str) -> int:
+    """How many ``{prefix}.{i}.`` blocks the keys hold."""
+    n = len(prefix) + 1
+    ids = {int(k[n:].split(".", 1)[0]) for k in keys
+           if k.startswith(prefix + ".")}
+    return max(ids) + 1 if ids else 0
+
+
+def flax_paths(keys) -> Dict[str, str]:
+    """The '/'-joined flax path (as in the JAX package's variable trees) of
+    every key of a port state dict: a ``Transformer``, a
+    ``CenterNetDetection`` (of any model size), a ``SimpleDecoder`` or a
+    ``TextDetectorModel`` (``detector.*`` / ``decoder.*``). Raises when a
+    key is not in the schedule."""
+    keys = list(keys)
+    kset = set(keys)
+    if any(k.startswith("encoder.") for k in keys):
+        s = _Paths()
+        _transformer(s, TransformerDims(
+            enc_block_num=_blocks(keys, "encoder.blocks"),
+            dec_block_num=_blocks(keys, "decoder.blocks")), True)
+        paths = s.paths
+    elif any(k.startswith("detector.") for k in keys):
+        paths = {}
+        for prefix in ("detector", "decoder"):
+            sub = [k[len(prefix) + 1:] for k in keys
+                   if k.startswith(prefix + ".")]
+            paths.update({f"{prefix}.{k}": f"{prefix}/{p}"
+                          for k, p in flax_paths(sub).items()})
+    elif any(k.startswith("blocks.") for k in keys):
+        s = _Paths()
+        _simple_decoder(s)
+        paths = s.paths
+    else:
+        paths = {}
+        for size in EFFNET_V2_CONFIGS:
+            s = _Paths()
+            _detector(s, size)
+            if set(s.paths) == kset:
+                paths = s.paths
+                break
+    missing = sorted(kset - set(paths))
+    if missing:
+        raise ValueError(f"keys outside the port's schedule: {missing[:5]}")
+    return {k: paths[k] for k in keys}
 
 
 def schedule_free_state_from_optax(opt_state, dims: TransformerDims

@@ -419,25 +419,50 @@ def mask_predict(model: Transformer, enc_input: torch.Tensor,
     Starts from an all-MSK decoder input and refines up to ``max_rounds``
     times, remasking low-confidence positions. Early stop is per window: a
     finished window's codes/probs freeze while the others refine. The
-    cross-attention K/V are computed once per call. Runs in eval mode (the
+    cross-attention K/V are computed once per call (the ``prepare_fn`` of
+    :func:`mask_predict_fns`, which runs the loop). Runs in eval mode (the
     model's mode is restored after).
 
     Returns ``(codes[B, dec_len] int32, probs[B, dec_len] f32)``.
     """
+    def decode_probs(dec_input, kv, key_mask):
+        logits = model.decode_cached(dec_input.long(), kv, key_mask)
+        return [torch.softmax(lg.float(), dim=-1) for lg in logits]
+
     was_training = model.training
     model.eval()
     try:
-        return _mask_predict(model, enc_input, max_rounds, topk,
-                             remask_threshold, early_stop_threshold, dec_len)
+        return mask_predict_fns(
+            model.encode, decode_probs, enc_input,
+            dec_len or model.dims.max_dec_seq_len, max_rounds=max_rounds,
+            topk=topk, remask_threshold=remask_threshold,
+            early_stop_threshold=early_stop_threshold,
+            prepare_fn=model.cross_kv)
     finally:
         model.train(was_training)
 
 
-def _mask_predict(model, enc_input, max_rounds, topk, remask_threshold,
-                  early_stop_threshold, dec_len):
-    dec_len = dec_len or model.dims.max_dec_seq_len
+@torch.no_grad()
+def mask_predict_fns(encode_fn, decode_probs_fn, enc_input: torch.Tensor,
+                     dec_len: int, max_rounds: int = 8, topk: int = 3,
+                     remask_threshold: float = 0.9,
+                     early_stop_threshold: float = 0.99, prepare_fn=None):
+    """:func:`mask_predict` over opaque encode/decode callables.
+
+    ``encode_fn(enc_input) -> enc_output``; ``decode_probs_fn(dec_input,
+    ctx, key_mask) -> per-modulus softmaxed probabilities`` where ``ctx``
+    is ``enc_output`` or, when ``prepare_fn`` is given,
+    ``prepare_fn(enc_output)``, a context made once per call (the live
+    model passes its cross-attention K/V heads through it). This drives the
+    deployment artifacts (``OCRPipeline.from_onnx`` / ``from_coreml`` /
+    ``from_exported``; the reference's ``process_ocr_onnx.py:27-72``) and
+    :func:`mask_predict` itself. ``dec_input`` reaches ``decode_probs_fn``
+    as int32.
+    """
     key_mask = make_key_mask(enc_input)
-    kv = model.cross_kv(model.encode(enc_input))
+    ctx = encode_fn(enc_input)
+    if prepare_fn is not None:
+        ctx = prepare_fn(ctx)
     b, dev = enc_input.shape[0], enc_input.device
     dec_input = torch.full((b, dec_len), DECODER_MSK, dtype=torch.int32,
                            device=dev)
@@ -445,8 +470,7 @@ def _mask_predict(model, enc_input, max_rounds, topk, remask_threshold,
     p_out = torch.zeros((b, dec_len), dtype=torch.float32, device=dev)
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
     for _ in range(max_rounds):
-        logits = model.decode_cached(dec_input.long(), kv, key_mask)
-        probs = [torch.softmax(lg.float(), dim=-1) for lg in logits]
+        probs = decode_probs_fn(dec_input, ctx, key_mask)
         code, p = crt_combine_topk_probs(probs, topk)
         code = code.to(torch.int32)
         invalid = p <= 0.0

@@ -15,6 +15,7 @@ The other way round, a port training checkpoint exported by the port's
 left over.
 """
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -380,11 +381,56 @@ def test_run_ocr_unknown_flag_exits_non_zero(cli_files, capsys):
     assert "unknown flag --no-such-flag" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag", ["--onnx-dir", "--coreml-dir"])
-def test_run_ocr_artifact_backends_are_not_ported(cli_files, flag):
-    d, _, _ = cli_files
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        run_ocr.main([f"{flag}={d}", "--tiny", "--device", "cpu",
+@pytest.fixture(scope="module")
+def artifact_dir(cli_files, tmp_path_factory):
+    """The tiny CLI weights as the ONNX artifacts ``--onnx-dir`` and
+    ``--coreml-dir`` read (``ARTIFACT_NAMES``), with a page."""
+    from findtextcenternet_tpu_torch.export import onnx_models
+    from findtextcenternet_tpu_torch.infer.onnx_backend import ARTIFACT_NAMES
+    src, det, tf = cli_files
+    d = tmp_path_factory.mktemp("artifacts")
+    cfg = _tiny_cli_config()
+    ts, dims = cfg.inference.tile_size, _port_dims(cfg)
+    for kind, blob in (
+            ("detector", onnx_models.emit_detector(
+                det.detector, "tiny", ts, ts, cfg.detector.feature_dim)),
+            ("encoder", onnx_models.emit_transformer_encoder(tf, dims)),
+            ("decoder", onnx_models.emit_transformer_decoder(tf, dims))):
+        (d / ARTIFACT_NAMES[kind]).write_bytes(blob)
+    (d / "page.png").write_bytes((src / "page.png").read_bytes())
+    return d
+
+
+@pytest.mark.parametrize("flag,backend", [("--onnx-dir", "ONNX"),
+                                          ("--coreml-dir", "CoreML")])
+def test_run_ocr_artifact_backends_serve(artifact_dir, flag, backend,
+                                         capsys):
+    """``--onnx-dir`` / ``--coreml-dir`` serve the artifacts of a directory
+    to the JSON result of the pipeline ``build_pipeline`` makes from them.
+    (The tiny random detector's keymap is nearly flat on this page, so its
+    peaks are not compared with the live module's here: a 1e-7 difference
+    moves a local maximum. ``test_torch_onnx`` / ``test_torch_coreml``
+    hold the pipelines on a page with clear peaks.)"""
+    d = artifact_dir
+    page = str(d / "page.png")
+    assert run_ocr.main([f"{flag}={d}", "--model-size=tiny", "--device",
+                         "cpu", page]) == 0
+    assert backend in capsys.readouterr().out
+    with open(page + ".json", encoding="utf-8") as f:
+        got = json.load(f)
+    kw = {flag[2:].replace("-", "_"): str(d)}
+    pipe = run_ocr.build_pipeline("tiny", device="cpu", **kw)
+    from PIL import Image
+    want = pipe(np.asarray(Image.open(page).convert("RGB")))
+    assert set(got) == {"box", "line", "block", "text", "aozora", "noruby"}
+    assert got["box"] and got == json.loads(json.dumps(want))
+
+
+def test_run_ocr_artifact_backends_are_exclusive(artifact_dir):
+    d = artifact_dir
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        run_ocr.main([f"--onnx-dir={d}", f"--coreml-dir={d}",
+                      "--model-size=tiny", "--device", "cpu",
                       str(d / "page.png")])
 
 

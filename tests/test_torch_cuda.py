@@ -714,3 +714,175 @@ def test_native_rasterizer_builds_on_the_card_machine(cuda):
     assert path.startswith(native.BUILD_DIR)
     lib = rasterizer._load_rast_lib()
     assert lib.rast_open(b"/nonexistent.ttf", 32.0, 0, 0, 0) is None
+
+
+# ---------------------------------------------------------------------------
+# deployment artifacts (ONNX evaluator, MIL mapping, torch.export)
+# ---------------------------------------------------------------------------
+
+def _seed11_models():
+    """The tiny CLI config and the seed-11 weights of
+    ``test_from_torch_checkpoints_on_card_equals_cpu`` (a page on which
+    their peaks are clear of the card's summation noise)."""
+    from findtextcenternet_tpu_torch.infer import run_ocr
+    from findtextcenternet_tpu_torch.models.detector import TextDetectorModel
+
+    cfg = run_ocr.build_pipeline("tiny", random_weights=True,
+                                 device="cpu").cfg
+    gen = torch.Generator().manual_seed(11)
+    det = init_flax_defaults_(TextDetectorModel(
+        "tiny", cfg.detector.feature_dim, cfg.detector.decoder_mid_dim),
+        gen).detector.eval()
+    t = cfg.transformer
+    dims = TransformerDims(t.enc_input_dim, t.embed_dim, t.head_num,
+                           t.enc_block_num, t.dec_block_num,
+                           t.max_enc_seq_len, t.max_dec_seq_len)
+    tf = init_flax_defaults_(Transformer(dims), gen).eval()
+    return cfg, det, tf, dims
+
+
+def _seed11_page():
+    rng = np.random.default_rng(4)
+    img = rng.integers(150, 256, (300, 500, 3)).astype(np.uint8)
+    for i in range(6):
+        img[100:140, 40 + 70 * i:80 + 70 * i] = rng.integers(0, 60,
+                                                             (40, 40, 3))
+    return img
+
+
+def _graph_feeds(name, dims, rng):
+    if name.startswith("detector"):
+        return {"image": rng.random((2, 3, 64, 64)).astype(np.float32)}
+    L = dims.max_enc_seq_len
+    enc = rng.standard_normal((3, L, dims.enc_input_dim)).astype(np.float32)
+    enc[0, 10:] = 0.0
+    km = make_key_mask(torch.from_numpy(enc)).numpy()
+    if name == "encoder":
+        return {"encoder_input": enc, "key_mask": km}
+    return {"encoder_output": rng.standard_normal(
+                (3, L, dims.embed_dim)).astype(np.float32),
+            "decoder_input": rng.integers(
+                0, 5000, (3, dims.max_dec_seq_len)).astype(np.int64),
+            "key_mask": km}
+
+
+def _assert_maps_close(got, want, atol, rtol):
+    got, want = got.cpu(), want.cpu()
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    fin = ~torch.isneginf(want)
+    torch.testing.assert_close(got[fin], want[fin], atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("name", ["detector", "detector_fp16", "encoder",
+                                  "decoder"])
+def test_onnx_evaluator_and_mil_on_card_match_cpu(cuda, name):
+    """The evaluator and the MIL backend on the card against the evaluator
+    on the CPU (cuDNN / cuBLAS f32 with TF32 off against the CPU's kernels:
+    atol/rtol 1e-4); every output stays on the card."""
+    from findtextcenternet_tpu_torch.export import onnx_models
+    from findtextcenternet_tpu_torch.export.coreml_models import (
+        MilSession, run_mapped)
+    from findtextcenternet_tpu_torch.export.onnx_writer import OnnxEvaluator
+
+    _, det, tf, dims = _seed11_models()
+    blob = {"detector": lambda: onnx_models.emit_detector(
+                det, "tiny", 64, 64, 8),
+            "detector_fp16": lambda: onnx_models.emit_detector(
+                det, "tiny", 64, 64, 8, half=True),
+            "encoder": lambda: onnx_models.emit_transformer_encoder(tf,
+                                                                    dims),
+            "decoder": lambda: onnx_models.emit_transformer_decoder(
+                tf, dims)}[name]()
+    feeds = _graph_feeds(name, dims, np.random.default_rng(0))
+    want = OnnxEvaluator(blob, "cpu")(**feeds)
+    for got in (OnnxEvaluator(blob, cuda)(**feeds),
+                run_mapped(blob, feeds, cuda),
+                MilSession(blob, cuda)(**feeds)):
+        assert set(got) == set(want)
+        for k in want:
+            assert got[k].device.type == "cuda"
+            _assert_maps_close(got[k], want[k], atol=1e-4, rtol=1e-4)
+
+
+def test_qdq_graph_on_card_matches_cpu_node_by_node(cuda):
+    """The static-int8 detector op by op: each node on the card, given the
+    CPU evaluator's values of its inputs, against the CPU node; the
+    QuantizeLinear integers equal (a whole-graph comparison would let a
+    1e-7 difference cross a rounding boundary and move one step)."""
+    from findtextcenternet_tpu_torch.export import onnx_models, quantize
+    from findtextcenternet_tpu_torch.export.onnx_writer import (
+        OnnxEvaluator, to_tensor)
+
+    _, det, _, _ = _seed11_models()
+    rng = np.random.default_rng(1)
+    ranges = quantize.calibrate_detector_edges(
+        det, [rng.random((1, 64, 64, 3)).astype(np.float32)])
+    blob = onnx_models.emit_detector_qdq(det, ranges, "tiny", 64, 64, 8)
+    cpu, gpu = OnnxEvaluator(blob, "cpu"), OnnxEvaluator(blob, cuda)
+    env = {k: to_tensor(v, "cpu") for k, v in _graph_feeds(
+        "detector", None, rng).items()}
+    quantized = 0
+    for node in cpu.m["nodes"]:
+        args = [(env[n] if n in env else cpu.inits[n]) if n else None
+                for n in node["inputs"]]
+        gargs = [None if a is None else a.to(cuda) for a in args]
+        want = cpu.run_node(node, args)[0]
+        got = gpu.run_node(node, gargs)[0]
+        env[node["outputs"][0]] = want
+        assert got.dtype == want.dtype, node["op"]
+        if node["op"] == "QuantizeLinear" or not want.is_floating_point():
+            assert torch.equal(got.cpu(), want), node["op"]
+            quantized += node["op"] == "QuantizeLinear"
+        else:
+            _assert_maps_close(got, want, atol=1e-4, rtol=1e-4)
+    assert quantized >= 8
+
+
+def test_from_onnx_page_on_card_equals_cpu(cuda):
+    from findtextcenternet_tpu_torch.export import onnx_models
+    from findtextcenternet_tpu_torch.infer.pipeline import OCRPipeline
+    from findtextcenternet_tpu_torch.ops import nms
+
+    cfg, det, tf, dims = _seed11_models()
+    ts = cfg.inference.tile_size
+    blobs = (onnx_models.emit_detector(det, "tiny", ts, ts,
+                                       cfg.detector.feature_dim),
+             onnx_models.emit_transformer_encoder(tf, dims),
+             onnx_models.emit_transformer_decoder(tf, dims))
+    img = _seed11_page()
+    out = {}
+    for d in ("cpu", cuda):
+        pipe = OCRPipeline.from_onnx(*blobs, cfg, "tiny", device=d)
+        nms.launches.reset()
+        out[d] = (pipe.run_detector(img), pipe(img), nms.launches.count)
+    (dcpu, want, n_cpu), (dgpu, got, n_gpu) = out["cpu"], out[cuda]
+    assert len(dcpu.locations) > 0 and n_cpu == 0 and n_gpu > 0
+    assert dgpu.locations.shape == dcpu.locations.shape
+    np.testing.assert_allclose(dgpu.locations, dcpu.locations, atol=1e-3,
+                               rtol=1e-4)
+    assert got["text"] == want["text"]
+
+
+def test_exported_program_loads_onto_the_card(cuda, tmp_path):
+    """Programs exported on the CPU load onto the card and compute there,
+    against the CPU programs at atol/rtol 1e-4."""
+    from findtextcenternet_tpu_torch.export import export
+
+    _, det, tf, dims = _seed11_models()
+    d_det = export.export_detector(str(tmp_path / "det"), det, tile=64)
+    d_enc = export.export_transformer_encoder(str(tmp_path / "enc"), tf)
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.random((3, 64, 64, 3)).astype(np.float32))
+    enc = torch.from_numpy(_graph_feeds("encoder", dims, rng)[
+        "encoder_input"])
+    for path, args in ((d_det, (x,)), (d_enc, (enc,))):
+        prog_cpu, meta = export.load_exported(path, "cpu")
+        prog_gpu, _ = export.load_exported(path, cuda)
+        with torch.inference_mode():
+            want = prog_cpu(*args)
+            got = prog_gpu(*[a.to(cuda) for a in args])
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        for g, w in zip(got, want):
+            assert g.device.type == "cuda"
+            _assert_maps_close(g, w, atol=1e-4, rtol=1e-4)
