@@ -26,7 +26,16 @@ Counterpart of ``findtextcenternet_tpu/infer/pipeline.py``:
 The default path and the host-merge, host-feature path
 (``fused_page_merge=False, device_features=False``) are bit-exact with
 each other. ``decode_len_buckets`` groups the windows by decode length, as
-in JAX. Mesh serving is not ported (ROADMAP.md).
+in JAX.
+
+``mesh=`` (a ``parallel.make_mesh`` mesh over ``torch.distributed`` ranks,
+one process per card) serves a page over the mesh's data axis, as JAX's
+GSPMD serving does: every rank runs the whole page with the same
+(replicated) weights, but each tile chunk's detector and NMS run on the
+rank's rows of the chunk, whose outputs are then all-gathered, and each
+decode bucket splits over the ranks the same way; the host stages run on
+every rank on equal inputs. As in JAX, the mesh path is the host-merge,
+host-feature path.
 """
 from __future__ import annotations
 
@@ -50,6 +59,7 @@ from ..models.transformer import (Transformer, TransformerDims,
                                   mask_predict_fns)
 from ..ops.kernels import LaunchCounter
 from ..ops.peaks import extract_peaks
+from ..parallel import collectives as coll
 from ..utils.text import codes_to_text, decode_ruby
 from . import hostops, lineengine
 
@@ -271,7 +281,7 @@ class OCRPipeline:
                  model_size: Optional[str] = None, seed: int = 0,
                  detector_apply: Optional[Callable] = None,
                  decode_fn: Optional[Callable] = None,
-                 device=None):
+                 device=None, mesh=None):
         """Page OCR on ``device`` (default ``"cuda"``; raises when no card
         is present, so the CPU runs only when asked for).
 
@@ -288,6 +298,12 @@ class OCRPipeline:
         (the hooks the differential tests use). A ``decode_fn`` hook turns
         the device-resident features off, as in JAX.
 
+        ``mesh`` (module doc) requires ``inference.detector_batch``
+        divisible by its data axis (``ValueError`` otherwise); tile-chunk
+        and window buckets round up to the data axis; the weights are
+        broadcast from rank 0; the device page merge and device features
+        are off.
+
         ``mosaic_merges`` (chunks merged into a page mosaic),
         ``feature_gathers`` (decode batches gathered on the device) and
         ``readback_bytes`` (device-to-host bytes of the page path) count
@@ -297,6 +313,14 @@ class OCRPipeline:
         self.cfg = config
         self.device = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
+        self.mesh = mesh
+        self._min_bucket = 1
+        if mesh is not None:
+            if ic.detector_batch % mesh.n_data:
+                raise ValueError(
+                    f"inference.detector_batch={ic.detector_batch} must be "
+                    f"divisible by the mesh data axis ({mesh.n_data})")
+            self._min_bucket = mesh.n_data
 
         size = model_size or config.detector.model_size
         self.detector = CenterNetDetection(
@@ -322,6 +346,10 @@ class OCRPipeline:
         elif decode_fn is None:
             init_flax_defaults_(self.transformer, gen)
         self.transformer.to(self.device).eval()
+        if mesh is not None:
+            from ..parallel import replicate
+            replicate(self.detector, mesh)
+            replicate(self.transformer, mesh)
 
         mp = config.mask_predict
         self._apply_fn = detector_apply or self.detector
@@ -485,11 +513,35 @@ class OCRPipeline:
     @property
     def _lazy_features(self) -> bool:
         """Device-resident glyph features: ``device_features`` on the fused
-        page path, for the live decoder only (JAX's gate; the mesh, which
-        JAX also excludes, is not ported)."""
-        ic = self.cfg.inference
-        return bool(ic.device_features and ic.fused_page_merge
+        page path, for the live decoder only, off a mesh (JAX's gate)."""
+        return bool(self.cfg.inference.device_features and self._fused_merge
                     and self._live_decode)
+
+    @property
+    def _fused_merge(self) -> bool:
+        """The device page merge: ``fused_page_merge`` off a mesh (a mesh
+        keeps the host merge, as in JAX)."""
+        return bool(self.cfg.inference.fused_page_merge and self.mesh is None)
+
+    def _data_group(self):
+        return None if self.mesh is None else self.mesh.data_group
+
+    def _my_rows(self, n: int) -> slice:
+        """This data rank's rows of a batch of ``n`` (``n`` divisible by
+        the data axis, as every bucket is)."""
+        g = self._data_group()
+        k = n // coll.size(g)
+        return slice(coll.rank(g) * k, (coll.rank(g) + 1) * k)
+
+    def _detect_chunk(self, page_dev: torch.Tensor, offs, bounds):
+        """:meth:`_detect` on a chunk of tiles cut at ``offs`` with the
+        (B,4) ``bounds``; under a mesh on this rank's rows, the outputs
+        all-gathered over the data axis."""
+        rows = self._my_rows(len(offs))
+        out = self._detect(self._page_tiles(page_dev, offs[rows]),
+                           self._upload(np.asarray(bounds[rows], np.int32)))
+        g = self._data_group()
+        return tuple(coll.all_gather(t, g, 0) for t in out)
 
     # ------------------------------------------------------------------
     # stage 1: tiled detection
@@ -579,7 +631,7 @@ class OCRPipeline:
             sizes.append(B)
             left -= B
         if left:
-            b = 1
+            b = self._min_bucket          # the mesh data axis, else 1
             while b < left:
                 b *= 2
             sizes.append(min(b, B))
@@ -664,17 +716,15 @@ class OCRPipeline:
         device, as the feature buffers do with device features. Returns
         ``([_Chunk, ...], mosaic)``, the mosaic None on the host-merge
         path."""
-        ic = self.cfg.inference
-        fused, lazy = ic.fused_page_merge, self._lazy_features
+        fused, lazy = self._fused_merge, self._lazy_features
         chunks, mosaic = [], None
         i0 = 0
         for size in self._chunk_sizes(len(offs)):
             n = min(size, len(offs) - i0)
             coffs = offs[i0:i0 + n] + [(0, 0)] * (size - n)
-            cbounds = np.asarray(
-                bounds[i0:i0 + n] + [(0, 0, 0, 0)] * (size - n), np.int32)
-            packed, feat, maps = self._detect(
-                self._page_tiles(page_dev, coffs), self._upload(cbounds))
+            cbounds = bounds[i0:i0 + n] + [(0, 0, 0, 0)] * (size - n)
+            packed, feat, maps = self._detect_chunk(page_dev, coffs,
+                                                    cbounds)
             if fused:
                 if mosaic is None:
                     mosaic = maps.new_zeros(
@@ -697,7 +747,7 @@ class OCRPipeline:
         ic = self.cfg.inference
         tile = ic.tile_size
         step = int(tile * ic.stride_ratio)
-        fused, lazy = ic.fused_page_merge, self._lazy_features
+        fused, lazy = self._fused_merge, self._lazy_features
 
         if img.dtype != np.uint8:
             # accept [0,1] and 0..255 float pages; NaN maps to 0
@@ -731,11 +781,9 @@ class OCRPipeline:
                          constant_values=255)
             B1 = self._chunk_sizes(1)[0]
             ms1 = tile // SCALE
-            bounds1 = np.zeros((B1, 4), np.int32)
-            bounds1[0] = (0, ms1, 0, ms1)
-            packed1, feat1, _ = self._detect(
-                self._page_tiles(self._upload(im1), [(0, 0)] * B1),
-                self._upload(bounds1))
+            bounds1 = [(0, ms1, 0, ms1)] + [(0, 0, 0, 0)] * (B1 - 1)
+            packed1, feat1, _ = self._detect_chunk(
+                self._upload(im1), [(0, 0)] * B1, bounds1)
             peaks = self._fetch_peaks(
                 self._readback(packed1),
                 None if lazy else self._readback(feat1))
@@ -1157,7 +1205,7 @@ class OCRPipeline:
         sp[1:fdim:2] = -5
         enc_len = dims.max_enc_seq_len
         buckets = tuple(sorted(self.cfg.inference.decode_len_buckets))
-        cap = max(1, int(self.cfg.inference.decode_max_batch))
+        cap = max(self._min_bucket, int(self.cfg.inference.decode_max_batch))
 
         groups: Dict[int, List[int]] = {}
         for wi, (_, ci, cj, _) in enumerate(windows):
@@ -1174,7 +1222,7 @@ class OCRPipeline:
             for c0 in range(0, len(idxs), cap):
                 chunk = idxs[c0:c0 + cap]
                 cn = len(chunk)
-                bucket = 1
+                bucket = self._min_bucket     # the mesh data axis, else 1
                 while bucket < cn:
                     bucket *= 2
                 batch = np.zeros((bucket, s_len, enc_dim), np.float32)
@@ -1191,14 +1239,18 @@ class OCRPipeline:
                 # exit
                 batch[cn:] = batch[0]
                 idxb[cn:] = idxb[0]
-                enc = self._upload(batch)
+                # under a mesh this rank decodes its rows of the bucket
+                rows = self._my_rows(bucket)
+                enc = self._upload(batch[rows])
                 if lazy:
                     enc = self._gather_features(enc, features.glyph_dev,
-                                                self._upload(idxb))
+                                                self._upload(idxb[rows]))
                 if self._live_decode and s_len < dims.max_dec_seq_len:
                     chunk_codes, _ = self._decode(enc, dec_len=s_len)
                 else:
                     chunk_codes, _ = self._decode(enc)
+                chunk_codes = coll.all_gather(chunk_codes,
+                                              self._data_group(), 0)
                 pending.append((chunk, self._readback(chunk_codes)))
 
         texts: List[str] = [""] * len(windows)
@@ -1354,10 +1406,11 @@ def ocr_pages(pipeline: OCRPipeline, images, workers: int = 2,
               resize: float = 1.0, twopass: bool = False) -> List[Dict]:
     """OCR several pages, two worker threads overlapping one page's host
     stages with another's device work (kernels release the GIL). Results
-    keep the input order."""
+    keep the input order. A mesh pipeline runs the pages on one thread:
+    two threads would issue the ranks' collectives in different orders."""
     from concurrent.futures import ThreadPoolExecutor
 
-    if workers <= 1 or len(images) <= 1:
+    if workers <= 1 or len(images) <= 1 or pipeline.mesh is not None:
         return [pipeline(im, resize, twopass=twopass) for im in images]
     with ThreadPoolExecutor(max_workers=workers) as ex:
         futs = [ex.submit(pipeline, im, resize, twopass=twopass)

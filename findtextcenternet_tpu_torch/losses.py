@@ -5,6 +5,15 @@ The port of ``findtextcenternet_tpu/losses.py``. Every loss is computed in
 f32 whatever the dtype of the logits. The CoV statistics are a
 :class:`CoVState` of tensors on the losses' device, updated without a
 host sync; its alphas carry no gradient.
+
+Under a data-parallel mesh each rank passes its rows and the mesh's data
+``group``: every data-dependent normaliser (the means' element counts,
+``weight1_count``, ``weight3_count``, the Transformer's ``count``) is then
+the global batch's, summed over the group, and each loss term a rank
+returns is its *contribution*, the sum of its rows' terms over the global
+normaliser, so that the terms (and their gradients) summed over the ranks
+are the global batch's. ``correct`` and ``total`` are the rank's counts;
+:func:`reduce_metrics` sums a metrics dict over the group.
 """
 from __future__ import annotations
 
@@ -15,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from .const import MODULO_LIST
+from .parallel import collectives as coll
 
 # names and order of the detector sub-losses fed to CoV weighting
 DETECTOR_LOSS_NAMES = (
@@ -23,7 +33,32 @@ DETECTOR_LOSS_NAMES = (
 )
 
 
-def heatmap_loss(true: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+def _global_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over the group's ranks (no gradient; ``x`` itself
+    with no active group)."""
+    return coll.all_reduce_(x.detach().clone(), group)
+
+
+def _mean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``torch.mean(x)``; under an active ``group`` the rank's share of the
+    global mean (equal shards: the local mean over the group's size, so a
+    group of one rank computes exactly ``torch.mean(x)``)."""
+    return torch.mean(x) / coll.size(group)
+
+
+def reduce_metrics(metrics: Dict[str, torch.Tensor], group
+                   ) -> Dict[str, torch.Tensor]:
+    """Every metric (loss contributions, ``correct``, ``total``) summed over
+    ``group``, detached: the global batch's values. The identity with no
+    active group."""
+    if not coll.active(group):
+        return metrics
+    return {k: _global_sum(torch.as_tensor(v), group)
+            for k, v in metrics.items()}
+
+
+def heatmap_loss(true: torch.Tensor, logits: torch.Tensor,
+                 group=None) -> torch.Tensor:
     """Penalty-reduced focal loss on logits (CenterNet), alpha=2 beta=4."""
     alpha, beta, pos_th = 2.0, 4.0, 1.0
     logits32 = logits.float()
@@ -36,7 +71,7 @@ def heatmap_loss(true: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     # -log(1 - sigmoid(x)) = x + softplus(-x)
     neg_loss = (logits32 + F.softplus(-logits32)) * \
         torch.pow(predict, alpha) * neg_weights
-    return torch.mean(pos_loss * pos_mask + neg_loss * neg_mask)
+    return _mean(pos_loss * pos_mask + neg_loss * neg_mask, group)
 
 
 def _huber(pred, target, delta=1.0):
@@ -46,19 +81,19 @@ def _huber(pred, target, delta=1.0):
     return 0.5 * quad * quad + delta * (abs_err - quad)
 
 
-def _bce_logits(logits, labels, weight=None):
+def _bce_logits(logits, labels, weight=None, group=None):
     logits = logits.float()
     loss = torch.clamp(logits, min=0) - logits * labels + \
         F.softplus(-torch.abs(logits))
     if weight is not None:
         loss = loss * weight
-    return torch.mean(loss)
+    return _mean(loss, group)
 
 
 def detector_loss(fmask_idx: torch.Tensor, labelmap: torch.Tensor,
                   idmap: torch.Tensor, heatmap: torch.Tensor,
-                  decoder_outputs: Sequence[torch.Tensor]
-                  ) -> Dict[str, torch.Tensor]:
+                  decoder_outputs: Sequence[torch.Tensor],
+                  group=None) -> Dict[str, torch.Tensor]:
     """Composite detector loss (9 terms) + exact-match id accuracy.
 
     ``labelmap`` (B,H,W,5) key, xsize, ysize, line, sep; ``idmap``
@@ -66,7 +101,9 @@ def detector_loss(fmask_idx: torch.Tensor, labelmap: torch.Tensor,
     logits; ``decoder_outputs`` the per-modulus logits at ``fmask_idx``
     (flat indices into the ``[B*H*W]`` pixel axis). The masked selects of
     the upstream loss are weighted sums, as in JAX; the bit and modulus
-    tests run on int32 ids.
+    tests run on int32 ids. Under ``group`` (module doc) ``fmask_idx``
+    holds this rank's share of the global batch's selection, and the
+    terms are the rank's contributions.
     """
     key_th1, key_th3 = 0.85, 0.99
     idmap = idmap.to(torch.int32)
@@ -76,20 +113,22 @@ def detector_loss(fmask_idx: torch.Tensor, labelmap: torch.Tensor,
 
     # soft weights; weight>0 exactly where the reference masks select
     weight1 = torch.clamp(keylabel - key_th1, min=0.0) / (1 - key_th1)
-    weight1_count = torch.clamp(torch.sum(weight1), min=1.0)
+    weight1_count = torch.clamp(_global_sum(torch.sum(weight1), group), min=1.0)
     weight2 = weight1
     mask3 = (g_key > key_th3) & (g_id > 0)
     weight3 = torch.clamp(g_key - key_th3, min=0.0) / (1 - key_th3)
     weight3 = torch.where(mask3, weight3, torch.zeros_like(weight3))
-    weight3_count = torch.clamp(torch.sum(weight3), min=1.0)
+    weight3_count = torch.clamp(_global_sum(torch.sum(weight3), group), min=1.0)
 
-    keymap_loss_ = heatmap_loss(keylabel, heatmap[..., 0]) * 10.0
+    keymap_loss_ = heatmap_loss(keylabel, heatmap[..., 0], group) * 10.0
     xsize_loss = _huber(heatmap[..., 1].float(), labelmap[..., 1])
     ysize_loss = _huber(heatmap[..., 2].float(), labelmap[..., 2])
     size_loss = torch.sum((xsize_loss + ysize_loss) * weight1) / \
         weight1_count
-    textline_loss = _bce_logits(heatmap[..., 3], labelmap[..., 3])
-    separator_loss = _bce_logits(heatmap[..., 4], labelmap[..., 4])
+    textline_loss = _bce_logits(heatmap[..., 3], labelmap[..., 3],
+                                group=group)
+    separator_loss = _bce_logits(heatmap[..., 4], labelmap[..., 4],
+                                 group=group)
 
     code_losses = {}
     flags = idmap[..., 1]
@@ -97,7 +136,7 @@ def detector_loss(fmask_idx: torch.Tensor, labelmap: torch.Tensor,
         label = ((flags & (1 << i)) > 0).float()
         w = 1.0 + label * weight2 + weight2
         code_losses[f"code{1 << i}_loss"] = _bce_logits(
-            heatmap[..., 5 + i], label, weight=w)
+            heatmap[..., 5 + i], label, weight=w, group=group)
 
     id_loss = 0.0
     all_correct = torch.ones_like(g_id, dtype=torch.bool)
@@ -135,15 +174,18 @@ def softmax_ce_int(logits: torch.Tensor, labels: torch.Tensor
 
 def transformer_loss(outputs: Sequence[torch.Tensor],
                      labelcode: torch.Tensor,
-                     mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+                     mask: torch.Tensor, group=None
+                     ) -> Dict[str, torch.Tensor]:
     """Per-modulus CE at the masked positions + exact-match accuracy.
 
     ``outputs``: one (B, L, m) logit tensor per CRT modulus; ``labelcode``:
     (B, L) target codepoints; ``mask``: (B, L) bool, the positions that
-    were MSK in the decoder input and are real in the target.
+    were MSK in the decoder input and are real in the target. Under
+    ``group`` ``count`` is the global batch's and the loss the rank's
+    contribution (module doc).
     """
     maskf = mask.float()
-    count = torch.clamp(torch.sum(maskf), min=1.0)
+    count = torch.clamp(_global_sum(torch.sum(maskf), group), min=1.0)
     loss = 0.0
     all_correct = torch.ones_like(labelcode, dtype=torch.bool)
     for m, logits in zip(MODULO_LIST, outputs):
@@ -183,14 +225,18 @@ def cov_init(num_losses: int, device=None) -> CoVState:
                     mean_L=z, mean_l=z.clone(), S_l=z.clone())
 
 
-def cov_apply(state: CoVState, losses: Sequence[torch.Tensor]
+def cov_apply(state: CoVState, losses: Sequence[torch.Tensor],
+              contributions=None
               ) -> Tuple[torch.Tensor, CoVState, torch.Tensor]:
     """Weight ``losses`` by inverse coefficient of variation.
 
     Returns ``(weighted_total, new_state, alphas)``. Gradients flow through
     ``losses`` but not through the statistics (the alphas are detached),
     like the upstream ``CoVWeightingLoss.forward``. For the first two
-    iterations (``t <= 1``) every alpha is ``1/n``.
+    iterations (``t <= 1``) every alpha is ``1/n``. Under a mesh
+    ``losses`` are the global batch's values (the same on every rank, so
+    every rank holds the same CoV state) and ``contributions`` this
+    rank's differentiable shares of them, which the alphas weight.
     """
     n = len(losses)
     L = torch.stack([torch.as_tensor(l).detach().float() for l in losses])
@@ -213,7 +259,8 @@ def cov_apply(state: CoVState, losses: Sequence[torch.Tensor]
     new_S_l = state.S_l + (ratio - state.mean_l) * (ratio - new_mean_l)
     new_mean_L = mean_param * state.mean_L + (1 - mean_param) * L
 
-    weighted = sum(a * l for a, l in zip(alphas, losses))
+    weighted = sum(a * l for a, l in zip(
+        alphas, losses if contributions is None else contributions))
     return weighted, CoVState(t=t, mean_L=new_mean_L, mean_l=new_mean_l,
                               S_l=new_S_l), alphas
 

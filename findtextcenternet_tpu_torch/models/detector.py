@@ -10,16 +10,23 @@ the upstream spelling; the training wrapper's are ``detector.*`` and
 ``decoder.*``). BatchNorms keep flax's running variance
 (:mod:`.batchnorm`); ``remat`` recomputes each head in the backward pass,
 as the backbone's blocks.
+
+Under a mesh: :func:`shard_fmask` takes each data rank's share of the
+global batch's top-k selection, and a SimpleDecoder split over ``model``
+(``parallel.mesh.shard_params``, the JAX package's TP rules) holds a column
+slice of each ``fc0`` and a row slice of each ``fc1``.
 """
 from __future__ import annotations
 
 from typing import List, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..const import FEATURE_DIM, MODULO_LIST
 from ..ops.resize import upsample2x
+from ..parallel import collectives as coll
 from .batchnorm import BatchNorm1d, BatchNorm2d, remat
 from .efficientnet import TAP_CHANNELS, EfficientNetV2
 
@@ -128,9 +135,44 @@ class SimpleDecoder(nn.Module):
             nn.Linear(mid_dim, mid_dim, bias=False),
             BatchNorm1d(mid_dim, eps=1e-5), nn.GELU(approximate="none"),
             nn.Linear(mid_dim, m)) for m in MODULO_LIST)
+        self.tp = None             # (group, rank, n) once split
 
     def forward(self, x) -> List[torch.Tensor]:
-        return [b(x) for b in self.blocks]
+        if self.tp is None:
+            return [b(x) for b in self.blocks]
+        return [self._split_block(b, x) for b in self.blocks]
+
+    def tp_unit(self, n: int) -> List[str]:
+        """The weights the TP rules split (``parallel.mesh``)."""
+        return [f"blocks.{k}.{i}.weight" for k in range(len(self.blocks))
+                for i in (0, 3)]
+
+    @torch.no_grad()
+    def shard_model_(self, group, rank: int, n: int) -> set:
+        """Keep this rank's output slice of each ``fc0`` and input slice of
+        each ``fc1``. Returns the names of the replicated parameters whose
+        gradient each rank holds a part of: the BatchNorm after ``fc0``
+        runs on the gathered outputs, but a rank's loss reaches only its
+        own channels of it."""
+        for b in self.blocks:
+            k0 = b[0].weight.shape[0] // n
+            b[0].weight = nn.Parameter(
+                b[0].weight.narrow(0, rank * k0, k0).clone())
+            k1 = b[3].weight.shape[1] // n
+            b[3].weight = nn.Parameter(
+                b[3].weight.narrow(1, rank * k1, k1).clone())
+        self.tp = (group, rank, n)
+        return {f"blocks.{k}.1.{p}" for k in range(len(self.blocks))
+                for p in ("weight", "bias")}
+
+    def _split_block(self, b, x):
+        group, rank, _ = self.tp
+        h = F.linear(coll.copy_to_group(x, group), b[0].weight)
+        h = b[2](b[1](coll.gather_from_group(h, group, -1)))
+        k = b[3].weight.shape[1]
+        h = coll.reduce_from_group(
+            F.linear(h.narrow(-1, rank * k, k), b[3].weight), group)
+        return b[6](b[5](b[4](h)))
 
 
 def topk_fmask(keymap: torch.Tensor, k_per_sample: int = 1024
@@ -147,6 +189,23 @@ def topk_fmask(keymap: torch.Tensor, k_per_sample: int = 1024
     flat = keymap.reshape(-1)
     k = k_per_sample * keymap.shape[0]
     return torch.sort(flat, descending=True, stable=True).indices[:k]
+
+
+def shard_fmask(keymap: torch.Tensor, k_per_sample: int, group=None
+                ) -> torch.Tensor:
+    """This data rank's share of :func:`topk_fmask` over the global batch:
+    the keymaps of the ``group``'s ranks are gathered (rank order is the
+    global batch's row order), the selection made on the whole batch,
+    and the indices that fall in this rank's rows kept, in the selection's
+    order, as flat indices into its own ``[B*H*W]`` pixels. A rank may hold
+    none. :func:`topk_fmask` itself with no active group."""
+    if not coll.active(group):
+        return topk_fmask(keymap, k_per_sample)
+    idx = topk_fmask(coll.all_gather(keymap.contiguous(), group, 0),
+                     k_per_sample)
+    per = keymap.numel()
+    lo = coll.rank(group) * per
+    return idx[(idx >= lo) & (idx < lo + per)] - lo
 
 
 class TextDetectorModel(nn.Module):

@@ -237,12 +237,18 @@ class EfficientNetV2(nn.Module):
 
     @torch.no_grad()
     def set_drop_path_noise(self, gen: torch.Generator, batch: int,
-                            device) -> None:
+                            device, shard=(0, 1)) -> None:
         """Draw the next forward's drop-path noise: ``(blocks, batch)``
         uniforms from ``gen`` (on its own device), in block order, moved to
-        ``device`` in one copy."""
+        ``device`` in one copy. ``shard = (rank, n)``: the batch is rank
+        ``rank``'s slice of a global batch ``n`` times larger, whose noise
+        is drawn and sliced."""
         sds = [m for m in self.modules() if isinstance(m, StochasticDepth)]
-        u = torch.rand((len(sds), batch), generator=gen, device=gen.device)
+        r, n = shard
+        u = torch.rand((len(sds), batch * n), generator=gen,
+                       device=gen.device)
+        if n > 1:
+            u = u[:, r * batch:(r + 1) * batch].contiguous()
         if u.device != torch.device(device):
             if u.device.type == "cpu" and torch.device(device).type == "cuda":
                 u = u.pin_memory()

@@ -21,6 +21,17 @@ self-attention key tables (``pos_emb_k`` of a module with no
 ``model3.pt`` keys and take no gradient (``requires_grad=False``);
 ``train.state.TrainState.eval_state_dict`` fills them with the query
 tables for export.
+
+Tensor parallelism over a mesh's ``model`` axis
+(``parallel.mesh.shard_params``, by the JAX package's TP rules): the q, k
+and v projections are column-split by heads, so each rank attends over
+``H / n_model`` heads (the attention kernels too); ``out_proj`` is
+row-split and its partial outputs summed over the group; SwiGLU's ``w1``
+and ``wg`` (with their biases) are column-split and ``w2`` row-split, its
+bias added once after the sum. A column-split layer's input sums its
+gradient over the group in the backward pass. Dropout masks are drawn at
+the whole (global) shape and each rank keeps its slice
+(:meth:`Dropout.shards`), so a mesh draws what one process draws.
 """
 from __future__ import annotations
 
@@ -44,6 +55,7 @@ from ..const import (
     MODULO_LIST,
 )
 from ..ops import attention
+from ..parallel import collectives as coll
 
 LN_EPS = 1e-6
 
@@ -53,12 +65,16 @@ class Dropout(nn.Module):
     probability ``1 - p`` and scale it by ``1/(1 - p)``, else zero;
     the identity in eval mode or at ``p == 0``. Masks come from
     ``self.generator`` (on the activations' device; the global generator
-    when None), so they are not JAX's."""
+    when None), so they are not JAX's. ``shards`` lists ``(dim, rank, n)``
+    where the input is rank ``rank``'s slice of ``n`` along ``dim`` (the
+    batch under data parallelism, heads or hidden units under tensor
+    parallelism): the mask is drawn at the whole shape and sliced."""
 
     def __init__(self, p: float):
         super().__init__()
         self.p = p
         self.generator: Optional[torch.Generator] = None
+        self.shards: List[Tuple[int, int, int]] = []
 
     def forward(self, x):
         if not self.training or self.p == 0.0:
@@ -66,8 +82,14 @@ class Dropout(nn.Module):
         keep_prob = 1.0 - self.p
         if keep_prob == 0.0:
             return torch.zeros_like(x)
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) < keep_prob
+        shape = list(x.shape)
+        for dim, _, n in self.shards:
+            shape[dim] *= n
+        u = torch.rand(shape, generator=self.generator, device=x.device)
+        for dim, r, n in self.shards:
+            k = x.shape[dim]
+            u = u.narrow(dim, r * k, k)
+        keep = u < keep_prob
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
@@ -106,15 +128,38 @@ class PositionalEncoding(nn.Module):
 
 
 class Dense(nn.Linear):
-    """Linear layer computing in ``dtype`` (f32 parameters)."""
+    """Linear layer computing in ``dtype`` (f32 parameters). Under tensor
+    parallelism (:meth:`split_`) ``"col"`` holds a slice of the outputs
+    (and the bias's) and ``"row"`` a slice of the inputs, its partial
+    outputs summed over the group before the whole bias is added."""
 
     def __init__(self, cin: int, cout: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__(cin, cout, bias=bias)
         self.compute_dtype = dtype
+        self.tp_mode: Optional[str] = None
+        self.tp_group = None
+
+    @torch.no_grad()
+    def split_(self, mode: str, group, rank: int, n: int) -> None:
+        """Keep this rank's slice of ``n`` of the weight (outputs for
+        ``"col"``, inputs for ``"row"``) and, for ``"col"``, of the bias."""
+        dim = 0 if mode == "col" else 1
+        k = self.weight.shape[dim] // n
+        self.weight = nn.Parameter(
+            self.weight.narrow(dim, rank * k, k).clone())
+        if mode == "col" and self.bias is not None:
+            self.bias = nn.Parameter(self.bias.narrow(0, rank * k, k).clone())
+        self.tp_mode, self.tp_group = mode, group
 
     def forward(self, x):
         dt = self.compute_dtype
+        if self.tp_mode == "col":
+            x = coll.copy_to_group(x, self.tp_group)
+        elif self.tp_mode == "row":
+            y = coll.reduce_from_group(
+                F.linear(x.to(dt), self.weight.to(dt)), self.tp_group)
+            return y if self.bias is None else y + self.bias.to(dt)
         b = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), b)
 
@@ -133,6 +178,18 @@ class SwiGLU(nn.Module):
 
     def forward(self, x):
         return self.w2(self.drop(self.w1(x) * F.silu(self.wg(x))))
+
+    @staticmethod
+    def tp_unit(n: int) -> List[str]:
+        """The weights the TP rules split (``parallel.mesh``)."""
+        return ["w1.weight", "w1.bias", "wg.weight", "wg.bias", "w2.weight"]
+
+    def shard_model_(self, group, rank: int, n: int) -> set:
+        self.w1.split_("col", group, rank, n)
+        self.wg.split_("col", group, rank, n)
+        self.w2.split_("row", group, rank, n)
+        self.drop.shards.append((-1, rank, n))
+        return set()
 
 
 class MultiheadAttn(nn.Module):
@@ -163,11 +220,28 @@ class MultiheadAttn(nn.Module):
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             setattr(self, name, Dense(embed_dim, embed_dim, bias=False,
                                       dtype=dtype))
+        self.local_heads = num_heads      # this rank's, under TP
+
+    def tp_unit(self, n: int) -> List[str]:
+        """The weights the TP rules split, or none where the heads do not
+        divide over ``n`` ranks (``parallel.mesh``)."""
+        if self.num_heads % n:
+            return []
+        return [f"{p}.weight" for p in ("q_proj", "k_proj", "v_proj",
+                                         "out_proj")]
+
+    def shard_model_(self, group, rank: int, n: int) -> set:
+        for p in ("q_proj", "k_proj", "v_proj"):
+            getattr(self, p).split_("col", group, rank, n)
+        self.out_proj.split_("row", group, rank, n)
+        self.local_heads = self.num_heads // n
+        self.attn_drop.shards.append((1, rank, n))
+        return set()
 
     def _heads(self, t):
         b, tl, _ = t.shape
-        h = self.num_heads
-        return t.reshape(b, tl, h, self.embed_dim // h)
+        return t.reshape(b, tl, self.local_heads,
+                         self.embed_dim // self.num_heads)
 
     def kv_heads(self, key, value):
         return self._heads(self.k_proj(key)), self._heads(self.v_proj(value))
@@ -191,7 +265,7 @@ class MultiheadAttn(nn.Module):
         else:
             out = attention.attention_plain(q, kh, vh, key_mask,
                                             dropout=self.attn_drop)
-        return self.out_proj(out.reshape(b, tq, self.embed_dim))
+        return self.out_proj(out.reshape(b, tq, -1))
 
     def cross_kv(self, key):
         return self.kv_heads(self.pos_emb_k(key), key)
@@ -348,6 +422,15 @@ class Transformer(nn.Module):
         for m in self.modules():
             if isinstance(m, Dropout):
                 m.generator = gen
+
+    def set_batch_shard(self, rank: int, n: int) -> None:
+        """The batch is rank ``rank``'s slice of ``n`` (data parallelism):
+        dropout masks are drawn for the whole batch and sliced."""
+        for m in self.modules():
+            if isinstance(m, Dropout):
+                m.shards = [s for s in m.shards if s[0] != 0]
+                if n > 1:
+                    m.shards.append((0, rank, n))
 
     def forward(self, enc_input, dec_input):
         key_mask = make_key_mask(enc_input)

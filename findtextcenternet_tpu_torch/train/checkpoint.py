@@ -8,6 +8,12 @@ and the averaged eval weights (with the buffers), the config JSON beside,
 the newest ``keep`` saves kept. Restoring continues training exactly. The
 files hold CPU tensors, so a checkpoint written on the card loads on the
 CPU and back.
+
+Under a mesh every rank calls :func:`save_checkpoint`: the ZeRO-1 slices
+of the optimizer state and the tensor-parallel slices of the weights are
+gathered (collectives), so the file holds the whole, layout-free state,
+which rank 0 writes. It restores onto any mesh, or onto one process: each
+rank keeps its slices of what it loads.
 """
 from __future__ import annotations
 
@@ -19,6 +25,8 @@ import torch
 
 from ..config import Config, to_json
 from ..losses import CoVState
+from ..parallel import collectives as coll
+from ..parallel.mesh import gather_tp, slice_tp
 from .state import TrainState
 
 STATE_FILE = "state.pt"
@@ -32,18 +40,36 @@ def _cpu(tree):
     return tree
 
 
+def _whole_state(state: TrainState) -> dict:
+    """The layout-free training state (a collective under a mesh)."""
+    model = state.model
+    opt = state.optimizer.state_dict()
+    for b in state.optimizer.BUFFERS:
+        opt[b] = gather_tp(opt[b], model)
+    return {
+        "step": state.step,
+        "params": _cpu(gather_tp(
+            {k: v.detach() for k, v in model.state_dict().items()}, model)),
+        "eval_params": _cpu(state.eval_state_dict()),
+        "opt_state": _cpu(opt),
+        "cov": _cpu(state.cov.state_dict()) if state.cov is not None else {},
+    }
+
+
 def save_checkpoint(ckpt_dir: str, state: TrainState,
                     config: Optional[Config] = None, keep: int = 3) -> str:
     ckpt_dir = os.path.abspath(ckpt_dir)
     path = os.path.join(ckpt_dir, f"step_{state.step:09d}")
+    payload = _whole_state(state)
+    if coll.world_rank() == 0:
+        _write(ckpt_dir, path, payload, config, keep)
+    coll.barrier()
+    return path
+
+
+def _write(ckpt_dir: str, path: str, payload: dict,
+           config: Optional[Config], keep: int) -> None:
     os.makedirs(path, exist_ok=True)
-    payload = {
-        "step": state.step,
-        "params": _cpu(state.model.state_dict()),
-        "eval_params": _cpu(state.eval_state_dict()),
-        "opt_state": _cpu(state.optimizer.state_dict()),
-        "cov": _cpu(state.cov.state_dict()) if state.cov is not None else {},
-    }
     tmp = os.path.join(path, STATE_FILE + ".tmp")
     torch.save(payload, tmp)
     os.replace(tmp, os.path.join(path, STATE_FILE))
@@ -51,7 +77,6 @@ def save_checkpoint(ckpt_dir: str, state: TrainState,
         with open(os.path.join(ckpt_dir, "config.json"), "w") as f:
             f.write(to_json(config))
     _prune(ckpt_dir, keep)
-    return path
 
 
 def _steps(ckpt_dir: str):
@@ -77,10 +102,16 @@ def _load(path: str) -> dict:
 
 def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     """Load a checkpoint into an initialised ``state`` (in place; the
-    tensors move to the model's device)."""
+    tensors move to the model's device; under a mesh each rank keeps its
+    slices)."""
     payload = _load(path)
-    state.model.load_state_dict(payload["params"])
-    state.optimizer.load_state_dict(payload["opt_state"])
+    model = state.model
+    model.load_state_dict({k: slice_tp(k, v, model)
+                           for k, v in payload["params"].items()})
+    opt = dict(payload["opt_state"])
+    for b in state.optimizer.BUFFERS:
+        opt[b] = {k: slice_tp(k, v, model) for k, v in opt[b].items()}
+    state.optimizer.load_state_dict(opt)
     if state.cov is not None:
         state.cov = CoVState(**payload["cov"]).to(state.cov.t.device)
     state.step = int(payload["step"])

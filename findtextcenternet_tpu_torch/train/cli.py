@@ -9,6 +9,11 @@ the port's own:
   from, in place of the CLI's defaults; the other flags then override it.
   The JAX CLIs can only change the few fields their flags name, so a run
   at another size (a tiny model on the CPU, say) needs this one.
+
+Started by ``torchrun --nproc-per-node=N -m ...`` (or with JAX's
+``JAX_COORDINATOR`` / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``), a CLI
+joins the process group that environment describes (:func:`join_ranks`)
+and trains on the mesh ``TrainConfig.data_axis`` / ``model_axis`` give.
 """
 from __future__ import annotations
 
@@ -63,3 +68,15 @@ def parse_flags(argv, cfg: Config, kw: dict, extra=(),
         elif name != "--config":
             raise SystemExit(f"unknown argument {a!r}")
     return cfg
+
+
+def join_ranks(kw: dict) -> bool:
+    """Initialise the process group the environment describes (NCCL on the
+    card, gloo with ``--device cpu``) and build the kernels and native
+    libraries once a host before the ranks use them; False, and nothing
+    done, for a single process."""
+    from ..parallel.distributed import build_once, init_distributed
+    if not init_distributed(device=kw.get("device")):
+        return False
+    build_once(kw.get("device"))
+    return True

@@ -12,6 +12,8 @@ import os
 import time
 from typing import Dict
 
+from ..parallel.collectives import world_rank
+
 
 class RunningMetrics:
     def __init__(self):
@@ -45,19 +47,26 @@ class RunningMetrics:
 
 
 class MetricLogger:
-    """stdout + ``<logdir>/log.jsonl``."""
+    """stdout + ``<logdir>/log.jsonl``; under ``torch.distributed`` rank 0
+    alone writes (every rank holds the same global metrics)."""
 
     def __init__(self, logdir: str):
-        os.makedirs(logdir, exist_ok=True)
         self.logdir = logdir
-        self._jsonl = open(os.path.join(logdir, "log.jsonl"), "a")
+        self._jsonl = None
+        if world_rank() == 0:
+            os.makedirs(logdir, exist_ok=True)
+            self._jsonl = open(os.path.join(logdir, "log.jsonl"), "a")
         self._t0 = time.time()
 
     def _write(self, rec: dict):
+        if self._jsonl is None:
+            return
         self._jsonl.write(json.dumps(rec, ensure_ascii=False) + "\n")
         self._jsonl.flush()
 
     def log(self, step: int, metrics: Dict[str, float], prefix: str = "train"):
+        if self._jsonl is None:
+            return
         self._write({"step": step, "time": round(time.time() - self._t0, 2),
                      "prefix": prefix, **{k: round(float(v), 6)
                                           for k, v in metrics.items()}})
@@ -69,4 +78,5 @@ class MetricLogger:
                      "tag": tag, "text": text})
 
     def close(self):
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()

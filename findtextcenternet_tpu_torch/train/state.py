@@ -26,6 +26,17 @@ run in numpy float32, which rounds them as XLA does; the tensor updates run
 in the parameters' dtype with torch's ``_foreach`` ops. The model's
 parameters are updated in place; ``eval_params`` gives the weights used
 for evaluation and export (the averaged ``x`` of the schedule-free ones).
+
+Under a mesh (:meth:`_Optimizer.shard_`) :meth:`step` takes this rank's
+gradient contributions and sums them over the data group itself. With
+ZeRO-1 (``TrainConfig.zero1``) each rank keeps only its slice of ``z``
+and the moments of the parameters ``parallel.mesh.state_shardings``
+chooses, on the dim it chooses: the step reduce-scatters those gradients
+on that dim, updates the slice of the buffers and of the parameter (the
+updates are elementwise, so a slice computes what the whole does), then
+all-gathers the parameter, which stays replicated as in JAX. The other
+gradients are all-reduced (one flat bucket). ``state_dict`` gathers the
+slices, so a checkpoint holds the whole, layout-free state.
 """
 from __future__ import annotations
 
@@ -38,6 +49,7 @@ import torch
 from torch import nn
 
 from ..losses import CoVState
+from ..parallel import collectives as coll
 
 _F32 = np.float32
 # optax defaults, as the JAX package leaves them
@@ -57,6 +69,18 @@ def trainable_parameters(model: nn.Module) -> Dict[str, nn.Parameter]:
     return {n: p for n, p in model.named_parameters() if p.requires_grad}
 
 
+@dataclasses.dataclass
+class GradSync:
+    """How an optimizer meets the mesh: the data group its gradients sum
+    over, the ZeRO-1 dims (parameter name -> torch dim of the slice this
+    rank keeps of its buffers), and the replicated parameters whose
+    gradient is split over the model group (summed there first)."""
+    data_group: object = None
+    zero_dims: Dict[str, int] = dataclasses.field(default_factory=dict)
+    model_group: object = None
+    model_partial: frozenset = frozenset()
+
+
 class _Optimizer:
     """Per-parameter buffers (``BUFFERS``) and scalars (``SCALARS``) over a
     dict of parameters updated in place."""
@@ -65,11 +89,79 @@ class _Optimizer:
 
     def __init__(self, params: Tensors):
         self.params = dict(params)
+        self.sync = GradSync()
         with torch.no_grad():
             for b in self.BUFFERS:
                 setattr(self, b, {n: (p.detach().clone() if b == "z"
                                       else torch.zeros_like(p))
                                   for n, p in self.params.items()})
+
+    @torch.no_grad()
+    def shard_(self, sync: GradSync) -> "_Optimizer":
+        """Meet the mesh of ``sync``: keep this rank's ZeRO-1 slice of the
+        buffers of ``sync.zero_dims`` (module doc)."""
+        self.sync = sync
+        for b in self.BUFFERS:
+            buf = getattr(self, b)
+            for n in sync.zero_dims:
+                buf[n] = self._slice(n, buf[n]).clone()
+        return self
+
+    def _slice(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's ZeRO-1 slice (a view) of the whole tensor ``t`` of
+        parameter ``name``; ``t`` itself when it is not split."""
+        d = self.sync.zero_dims.get(name)
+        if d is None:
+            return t
+        k = t.shape[d] // coll.size(self.sync.data_group)
+        return t.narrow(d, coll.rank(self.sync.data_group) * k, k)
+
+    def _whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole tensor of parameter ``name`` from this rank's slice
+        ``t`` (a collective over the data group where ``name`` is
+        split)."""
+        d = self.sync.zero_dims.get(name)
+        if d is None:
+            return t
+        return coll.all_gather(t.contiguous(), self.sync.data_group, d)
+
+    def _ys(self) -> List[torch.Tensor]:
+        """The parameters, or the slices of them this rank updates."""
+        return [self._slice(n, p) for n, p in self.params.items()]
+
+    def _grads(self, grads: Tensors) -> List[torch.Tensor]:
+        """This rank's gradient contributions summed over the mesh: split
+        over the model group first where ``model_partial`` says so, then
+        reduce-scattered over data on the ZeRO-1 dims, all-reduced (one
+        flat bucket) elsewhere. The gradients themselves off a mesh."""
+        sync = self.sync
+        grads = dict(grads)
+        # in the parameters' order: a set's order differs between
+        # processes, and the ranks' collectives must meet in order
+        for n in self.params:
+            if n in sync.model_partial:
+                grads[n] = coll.all_reduce_(grads[n].clone(),
+                                            sync.model_group)
+        group = sync.data_group
+        if not coll.active(group):
+            return [grads[n] for n in self.params]
+        flat = [n for n in self.params if n not in sync.zero_dims]
+        if flat:
+            bucket = coll.all_reduce_(torch.cat(
+                [grads[n].reshape(-1) for n in flat]), group)
+            for n, part in zip(flat, bucket.split(
+                    [grads[n].numel() for n in flat])):
+                grads[n] = part.view_as(grads[n])
+        for n, d in sync.zero_dims.items():
+            grads[n] = coll.reduce_scatter(grads[n], group, d)
+        return [grads[n] for n in self.params]
+
+    def _gather_params(self) -> None:
+        """All-gather the ZeRO-1 slices the step updated into the
+        parameters."""
+        for n, d in self.sync.zero_dims.items():
+            p = self.params[n]
+            p.copy_(self._whole(n, self._slice(n, p)))
 
     def _lists(self, d: Tensors) -> List[torch.Tensor]:
         return [d[n] for n in self.params]
@@ -78,9 +170,11 @@ class _Optimizer:
         setattr(self, name, dict(zip(self.params, values)))
 
     def state_dict(self) -> dict:
-        """The buffers by parameter name and the scalars (the layout
-        ``io.from_jax`` produces from the JAX package's optax state)."""
-        sd = {b: dict(getattr(self, b)) for b in self.BUFFERS}
+        """The buffers by parameter name (whole: ZeRO-1 slices are
+        gathered, a collective) and the scalars (the layout ``io.from_jax``
+        produces from the JAX package's optax state)."""
+        sd = {b: {n: self._whole(n, t) for n, t in getattr(self, b).items()}
+              for b in self.BUFFERS}
         for k in self.SCALARS:
             v = getattr(self, k)
             sd[k] = float(v) if isinstance(v, np.floating) else v
@@ -88,14 +182,16 @@ class _Optimizer:
 
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
+        """Load a whole state (:meth:`state_dict`); a rank keeps its
+        ZeRO-1 slices."""
         for key in self.BUFFERS:
             mine = getattr(self, key)
             if set(sd[key]) != set(mine):
                 raise KeyError(f"optimizer state {key!r} has other names "
                                f"than the parameters")
             for n, t in sd[key].items():
-                mine[n] = t.to(device=mine[n].device,
-                               dtype=mine[n].dtype).clone()
+                mine[n] = self._slice(n, t).to(device=mine[n].device,
+                                               dtype=mine[n].dtype).clone()
         for k in self.SCALARS:
             v = getattr(self, k)
             setattr(self, k, _F32(sd[k]) if isinstance(v, np.floating)
@@ -180,9 +276,9 @@ class _ScheduleFree(_Optimizer):
             with np.errstate(divide="ignore", invalid="ignore"):
                 ck = _F32(np.nan_to_num(weight / total, nan=0.0,
                                         posinf=np.inf))
-        ys = self._lists(self.params)
+        ys = self._ys()
         zs = self._lists(self.z)
-        upd = self._base_update([grads[n] for n in self.params])
+        upd = self._base_update(self._grads(grads))
         new_z = torch._foreach_add(zs, upd)
         del upd
         b1 = B1
@@ -197,6 +293,7 @@ class _ScheduleFree(_Optimizer):
         del x
         # optax returns the update new_y - y and the step adds it back
         torch._foreach_add_(ys, torch._foreach_sub(new_y, ys))
+        self._gather_params()
         self._store("z", new_z)
         self.step_count += 1
         self.weight_sum, self.max_lr = _F32(total), _F32(max_lr)
@@ -207,9 +304,9 @@ class _ScheduleFree(_Optimizer):
         (optax's ``schedule_free_eval_params``)."""
         b1 = B1
         xs = torch._foreach_div(torch._foreach_sub(
-            self._lists(self.params),
-            torch._foreach_mul(self._lists(self.z), 1.0 - b1)), b1)
-        return dict(zip(self.params, xs))
+            self._ys(), torch._foreach_mul(self._lists(self.z), 1.0 - b1)),
+            b1)
+        return {n: self._whole(n, x) for n, x in zip(self.params, xs)}
 
 
 class ScheduleFreeRAdam(_ScheduleFree, _RAdamMoments):
@@ -271,7 +368,7 @@ class ScheduleFreeAdamW(_ScheduleFree):
         del scale
         if self.weight_decay:
             torch._foreach_add_(upd, torch._foreach_mul(
-                self._lists(self.params), float(_F32(self.weight_decay))))
+                self._ys(), float(_F32(self.weight_decay))))
         # scale_by_learning_rate reads the schedule at its own count,
         # which starts at 0
         torch._foreach_mul_(upd, -float(warmup_lr(
@@ -309,9 +406,10 @@ class RAdam(_Optimizer, _RAdamMoments):
     def step(self, grads: Tensors) -> None:
         lr = exponential_decay_lr(self.learning_rate, self.transition_steps,
                                   self.decay_rate, self.count)
-        upd = self._radam([grads[n] for n in self.params])
+        upd = self._radam(self._grads(grads))
         torch._foreach_mul_(upd, -float(lr))
-        torch._foreach_add_(self._lists(self.params), upd)
+        torch._foreach_add_(self._ys(), upd)
+        self._gather_params()
 
 
 @dataclasses.dataclass
@@ -319,22 +417,29 @@ class TrainState:
     """Step count, model (its parameters, and its BatchNorm buffers, which
     no optimizer touches), optimizer and, for the detector, the CoV loss
     statistics. ``compute_dtype`` is the dtype the step computes in under
-    ``torch.autocast`` (f32: no autocast). The step functions update the
-    state in place and return it."""
+    ``torch.autocast`` (f32: no autocast). ``mesh`` is the
+    ``parallel.mesh.Mesh`` the state trains on (:func:`use_mesh`; None:
+    one process). The step functions update the state in place and return
+    it."""
     step: int
     model: nn.Module
     optimizer: _Optimizer
     cov: Optional[CoVState] = None
     compute_dtype: torch.dtype = torch.float32
+    mesh: Optional[object] = None
 
     @torch.no_grad()
     def eval_state_dict(self) -> Dict[str, torch.Tensor]:
         """The model's state dict with the averaged (eval) weights, the
         self-attention key tables mirrored from their query tables: what
-        inference and export load."""
+        inference and export load. Whole under a mesh (tensor-parallel
+        weights are gathered: every rank calls it)."""
+        from ..parallel.mesh import gather_tp
+
         sd = {k: v.detach().clone() for k, v in
               self.model.state_dict().items()}
         sd.update(self.optimizer.eval_params())
+        sd = gather_tp(sd, self.model)
         for name, m in self.model.named_modules():
             if getattr(m, "mirrors_key_table", False):
                 sd[f"{name}.pos_emb_k.encoding"] = \
@@ -359,6 +464,26 @@ class TrainState:
                 for n, p in params.items():
                     p.copy_(saved[n])
             self.model.train(was_training)
+
+
+def use_mesh(state: TrainState, mesh, zero1: bool = False) -> TrainState:
+    """Train ``state`` on ``mesh`` (in place): its BatchNorms take the data
+    group's statistics, and its optimizer sums the gradients over the
+    mesh, with ZeRO-1 slices of the buffers where ``zero1`` (the dims of
+    ``parallel.mesh.state_shardings``). The model must hold its final
+    (replicated, or TP-split) parameters and the optimizer be fresh."""
+    from ..models.batchnorm import set_sync_group
+    from ..parallel.mesh import zero1_dims
+
+    state.mesh = mesh
+    set_sync_group(state.model, mesh.data_group)
+    state.optimizer.shard_(GradSync(
+        data_group=mesh.data_group,
+        zero_dims=zero1_dims(state, mesh) if zero1 else {},
+        model_group=mesh.model_group,
+        model_partial=frozenset(getattr(state.model, "tp_partial_grads",
+                                        ()))))
+    return state
 
 
 def create_train_state(model: nn.Module, learning_rate: float) -> TrainState:

@@ -12,6 +12,18 @@ Random masks (the Transformer's dropout, the detector's drop path) come
 from ``torch.Generator`` s seeded from ``(dropout_seed, step[, micro
 index])``; they cannot equal JAX's, so the two packages agree only with
 dropout 0 (the default) and the drop-path rate at 0.
+
+Under a mesh (``state.mesh``, see ``state.use_mesh``) each rank steps on
+its rows of the global batch (``parallel.mesh.shard_batch``, which with
+``accum_steps > 1`` gives it its slice of each of JAX's micro-batches, so
+the micro-batches are JAX's). The losses are normalised over the global
+(micro-)batch and a rank's gradients are its contributions, which the
+optimizer sums over the data group: a rank whose rows hold no keypoints
+weighs by what it holds. The BatchNorms take the global batch's
+statistics, the detector's top-k selection is the global batch's, the
+metrics (and so the CoV state) are the global values on every rank, and
+the random masks are drawn at the global batch size and sliced, so N
+ranks compute what one process computes on the whole batch.
 """
 from __future__ import annotations
 
@@ -23,8 +35,8 @@ import torch
 
 from ..const import DECODER_MSK
 from ..losses import (DETECTOR_LOSS_NAMES, cov_apply, cov_eval,
-                      detector_loss, transformer_loss)
-from ..models.detector import topk_fmask
+                      detector_loss, reduce_metrics, transformer_loss)
+from ..models.detector import shard_fmask
 from .state import TrainState
 
 BATCH_KEYS = ("encoder_input", "decoder_input", "decoder_true")
@@ -51,19 +63,26 @@ def _loss_mask(batch) -> torch.Tensor:
 Tensors = Dict[str, torch.Tensor]
 
 
+def _data_group(state: TrainState):
+    return None if state.mesh is None else state.mesh.data_group
+
+
 def loss_and_grads(state: TrainState, batch: Tensors
                    ) -> Tuple[Tensors, Tensors]:
-    """Gradients of the loss by trainable parameter name, and the loss
-    metrics, for one (micro-)batch in the model's current mode."""
+    """Gradients of the loss by trainable parameter name (this rank's
+    contributions under a mesh), and the loss metrics (the global
+    batch's), for one (micro-)batch in the model's current mode."""
     params = state.optimizer.params
+    group = _data_group(state)
     outputs = state.model(batch["encoder_input"], batch["decoder_input"])
     metrics = transformer_loss(outputs, batch["decoder_true"],
-                               _loss_mask(batch))
+                               _loss_mask(batch), group)
     grads = torch.autograd.grad(metrics["loss"], list(params.values()),
                                 allow_unused=True)
     return ({n: torch.zeros_like(p) if g is None else g
              for (n, p), g in zip(params.items(), grads)},
-            {k: v.detach() for k, v in metrics.items()})
+            reduce_metrics({k: v.detach() for k, v in metrics.items()},
+                           group))
 
 
 def _dropout_seed(dropout_seed: int, step: int, *more: int) -> int:
@@ -120,10 +139,11 @@ def transformer_eval_step(state: TrainState, batch: Mapping
     mode."""
     device = next(state.model.parameters()).device
     batch = batch_to_device(batch, device)
+    group = _data_group(state)
     with state.evaluating() as model:
         outputs = model(batch["encoder_input"], batch["decoder_input"])
-        return transformer_loss(outputs, batch["decoder_true"],
-                                _loss_mask(batch))
+        return reduce_metrics(transformer_loss(
+            outputs, batch["decoder_true"], _loss_mask(batch), group), group)
 
 
 # ---------------------------------------------------------------------------
@@ -154,20 +174,27 @@ def _autocast(state: TrainState, device):
 
 
 def _detector_forward(state: TrainState, batch: Tensors, fmask_k: int):
-    """(fmask_idx, metrics) of one forward in the model's current mode."""
-    fmask_idx = topk_fmask(batch["labelmap"][..., 0], fmask_k)
+    """(fmask_idx, metrics) of one forward in the model's current mode:
+    under a mesh this rank's share of the global selection and its
+    contributions to the loss terms and counts."""
+    group = _data_group(state)
+    fmask_idx = shard_fmask(batch["labelmap"][..., 0], fmask_k, group)
     with _autocast(state, batch["image"].device):
         heatmap, decoder_outputs = state.model(batch["image"], fmask_idx)
     return fmask_idx, detector_loss(fmask_idx, batch["labelmap"],
-                                    batch["idmap"], heatmap, decoder_outputs)
+                                    batch["idmap"], heatmap, decoder_outputs,
+                                    group)
 
 
 def _drop_path_noise(state: TrainState, seed: int, batch: Tensors) -> None:
     """Drop-path noise of the next forward from a CPU generator seeded
-    with ``seed`` (so the card draws what the CPU draws)."""
+    with ``seed`` (so the card draws what the CPU draws), drawn for the
+    global batch under a mesh (this rank keeps its rows')."""
     gen = torch.Generator().manual_seed(seed)
+    mesh = state.mesh
     state.model.detector.backbone.set_drop_path_noise(
-        gen, len(batch["image"]), batch["image"].device)
+        gen, len(batch["image"]), batch["image"].device,
+        shard=(0, 1) if mesh is None else (mesh.data_rank, mesh.n_data))
 
 
 def _detector_micro(state: TrainState, mb: Tensors, fmask_k: int,
@@ -177,15 +204,17 @@ def _detector_micro(state: TrainState, mb: Tensors, fmask_k: int,
     params = state.optimizer.params
     _drop_path_noise(state, seed, mb)
     _, metrics = _detector_forward(state, mb, fmask_k)
+    total = reduce_metrics({k: v.detach() for k, v in metrics.items()},
+                           _data_group(state))
     weighted, state.cov, _ = cov_apply(
-        state.cov, [metrics[k] for k in DETECTOR_LOSS_NAMES])
+        state.cov, [total[k] for k in DETECTOR_LOSS_NAMES],
+        contributions=[metrics[k] for k in DETECTOR_LOSS_NAMES])
     if loss_scale != 1.0:
         weighted = weighted * loss_scale
     grads = torch.autograd.grad(weighted, list(params.values()),
                                 allow_unused=True)
     return ({n: torch.zeros_like(p) if g is None else g
-             for (n, p), g in zip(params.items(), grads)},
-            {k: v.detach() for k, v in metrics.items()})
+             for (n, p), g in zip(params.items(), grads)}, total)
 
 
 def detector_train_step(state: TrainState, batch: Mapping,
@@ -243,6 +272,7 @@ def detector_eval_step(state: TrainState, batch: Mapping,
     batch = detector_batch_to_device(batch, device)
     with state.evaluating():
         _, metrics = _detector_forward(state, batch, fmask_k)
+    metrics = reduce_metrics(metrics, _data_group(state))
     metrics["loss"] = cov_eval([metrics[k] for k in DETECTOR_LOSS_NAMES])
     return metrics
 

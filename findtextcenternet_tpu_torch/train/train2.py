@@ -8,6 +8,8 @@ resumes from its own checkpoint directory (the whole state); otherwise
 ``--init-from`` a stage-1 run loads that run's eval weights and BN
 statistics only (its schedule-free AdamW state must not seed RAdam). As in
 JAX, every run trains ``epochs`` epochs from the state it starts with.
+Under a mesh (``mesh=``) it runs as stage 1 does: rank 0's loaders feed
+the global batches, each rank steps on its rows.
 
 Usage (the JAX CLI's flags, plus ``--device``, ``--config`` and
 ``--steps-per-epoch``):
@@ -24,29 +26,37 @@ import sys
 import torch
 
 from ..config import Config
-from .cli import MODEL_SIZE_FLAG, glob_sorted, parse_flags
+from .cli import MODEL_SIZE_FLAG, glob_sorted, join_ranks, parse_flags
 from .train1 import build_detector_state
 
 
 def train(fixdata_dir, shards=(), config=None, init_from=None,
           steps_per_epoch: int = 500, weight_fix: float = 1.0,
           weight_stream: float = 1.0, lr_decay: float = 0.98,
-          num_workers: int = 2, decoder_only: bool = False, device=None):
+          num_workers: int = 2, decoder_only: bool = False, device=None,
+          mesh=None):
     from ..data.fixdata import FixDataLoader
     from ..data.loader import DetectorLoader
+    from ..parallel import shard_batch
+    from ..parallel.collectives import broadcast_batch, world_rank
+    from ..parallel.mesh import mesh_from_config, slice_tp
     from . import checkpoint as ckpt
     from .metrics import MetricLogger, RunningMetrics
-    from .state import RAdam, trainable_parameters
+    from .state import RAdam, trainable_parameters, use_mesh
     from .steps import detector_train_step
 
     config = config or Config()
     tc = config.train
-    model, state = build_detector_state(config, tc.seed, device)
-    if next(model.parameters()).is_cuda:
+    mesh = mesh or mesh_from_config(tc)
+    model, state = build_detector_state(config, mesh, tc.seed, device)
+    dev = next(model.parameters()).device
+    if dev.type == "cuda":
         # fixed shapes: autotune the convolutions, as XLA does
         torch.backends.cudnn.benchmark = True
     state.optimizer = RAdam(trainable_parameters(model), tc.learning_rate,
                             steps_per_epoch, lr_decay)
+    use_mesh(state, mesh, zero1=tc.zero1)
+    leader = world_rank() == 0
 
     own = ckpt.latest_checkpoint(tc.checkpoint_dir)
     if own:
@@ -55,23 +65,29 @@ def train(fixdata_dir, shards=(), config=None, init_from=None,
     elif init_from:
         latest = ckpt.latest_checkpoint(init_from)
         if latest:
-            model.load_state_dict(ckpt.load_eval_params(latest))
+            model.load_state_dict({
+                k: slice_tp(k, v, model)
+                for k, v in ckpt.load_eval_params(latest).items()})
             print(f"initialized weights from {latest}")
 
     fmask_k = config.detector.fmask_topk_per_sample
     out_hw = config.detector.image_size
 
-    def step(batch, weight):
+    def step(it, weight):
+        # rank 0's loaders feed the mesh; each rank keeps its rows
+        batch = shard_batch(broadcast_batch(next(it) if leader else None,
+                                            dev), mesh)
         return detector_train_step(
             state, batch, fmask_k=fmask_k, loss_scale=weight,
             freeze_detector=decoder_only, dropout_seed=tc.seed)
 
-    fix_it = FixDataLoader(fixdata_dir, tc.batch_size, seed=tc.seed,
-                           out_hw=out_hw).batches()
+    fix_it = (FixDataLoader(fixdata_dir, tc.batch_size, seed=tc.seed,
+                            out_hw=out_hw).batches() if leader else None)
+    streamed = bool(shards)
     stream_it = (iter(DetectorLoader(shards, tc.batch_size,
                                      num_workers=num_workers, seed=tc.seed,
                                      out_hw=out_hw))
-                 if shards else None)
+                 if streamed and leader else None)
     logger = MetricLogger(f"{tc.checkpoint_dir}/logs")
     running = RunningMetrics()
     try:
@@ -79,10 +95,10 @@ def train(fixdata_dir, shards=(), config=None, init_from=None,
             for _ in range(steps_per_epoch):
                 # upstream order per iteration: the streamed batch
                 # (weight1) first, then the fixdata batch (weight2)
-                if stream_it is not None:
-                    state, m = step(next(stream_it), weight_stream)
+                if streamed:
+                    state, m = step(stream_it, weight_stream)
                     running.update(m)
-                state, m = step(next(fix_it), weight_fix)
+                state, m = step(fix_it, weight_fix)
                 running.update(m)
                 if state.step % tc.log_every == 0:
                     logger.log(state.step, running.summary())
@@ -117,6 +133,7 @@ def main(argv=None):
     if "fixdata_dir" not in kw:
         print(__doc__)
         return 1
+    join_ranks(kw)
     train(config=cfg, **kw)
     return 0
 

@@ -4,9 +4,17 @@ The port of ``findtextcenternet_tpu/train/train3.py``: schedule-free RAdam,
 the feature-noise curriculum (noise 1.0 until the val loss falls below 2.0,
 then x0.9 per epoch), a checkpoint and a validation pass per epoch, and a
 sample decode through :func:`..models.transformer.mask_predict` with the
-averaged weights. One device, no mesh. ``attn_impl="auto"`` (the config's
-default) trains through the CUDA attention kernels on the card and the
-einsum composition on the CPU.
+averaged weights. ``attn_impl="auto"`` (the config's default) trains
+through the CUDA attention kernels on the card and the einsum composition
+on the CPU.
+
+Under a mesh (``mesh=``; by default the one ``TrainConfig.data_axis`` and
+``model_axis`` describe over the initialised process group, which is one
+process when none is) every rank draws the same global batch and steps on
+its rows; a model axis above 1 splits the Transformer over it (``shard_tp``,
+the JAX package's TP rules) and ``TrainConfig.zero1`` slices the optimizer
+state over ``data``. Start N ranks with ``torchrun --nproc-per-node=N -m
+findtextcenternet_tpu_torch.train.train3 ...``.
 
 Usage (same flags as the JAX CLI, plus ``--device`` and ``--config``, see
 ``cli``):
@@ -29,15 +37,22 @@ from ..config import Config, resolve_attn_impl
 from ..device import resolve_device
 from ..models.init import init_flax_defaults_
 from ..models.transformer import Transformer, TransformerDims
-from .cli import glob_sorted, parse_flags
+from .cli import glob_sorted, join_ranks, parse_flags
 
 
-def build_transformer_state(config: Config, seed: int = 0, device=None):
+def build_transformer_state(config: Config, mesh=None, seed: int = 0,
+                            shard_tp: bool = False, device=None):
     """(model, TrainState): the Transformer of ``config.transformer`` with
     random weights drawn like flax's defaults from ``torch.Generator(seed)``
     on ``device`` (default the card), in train mode, and schedule-free
-    RAdam at ``config.train.learning_rate``."""
-    from .state import create_train_state
+    RAdam at ``config.train.learning_rate``.
+
+    On ``mesh`` the weights are broadcast from rank 0, split over the model
+    axis where ``shard_tp``, dropout masks drawn for the global batch, and
+    the optimizer state sliced over ``data`` where ``config.train.zero1``
+    (JAX's ``build_transformer_state``)."""
+    from ..parallel import replicate, shard_params
+    from .state import create_train_state, use_mesh
 
     dev = resolve_device(device)
     t = config.transformer
@@ -49,17 +64,27 @@ def build_transformer_state(config: Config, seed: int = 0, device=None):
     model = Transformer(dims, attn_impl=resolve_attn_impl(t.attn_impl, dev))
     init_flax_defaults_(model, torch.Generator().manual_seed(seed))
     model.to(dev)
-    return model, create_train_state(model, config.train.learning_rate)
+    if mesh is not None:
+        replicate(model, mesh)
+        if shard_tp:
+            shard_params(model, mesh)
+        model.set_batch_shard(mesh.data_rank, mesh.n_data)
+    state = create_train_state(model, config.train.learning_rate)
+    if mesh is not None:
+        use_mesh(state, mesh, zero1=config.train.zero1)
+    return model, state
 
 
 def train(features_npz=None, text_files=(), config=None,
           steps_per_epoch: int = 1000, val_steps: int = 20,
           resume: bool = True, synthetic_bank: bool = False,
           realdata_dir=None, train_noise_ratio: float = 1.0, bank=None,
-          device=None):
+          device=None, mesh=None):
     from ..data.transformer_data import (
         FeatureBank, TransformerDataset, load_realdata_dir)
     from ..models.transformer import mask_predict
+    from ..parallel import shard_batch
+    from ..parallel.mesh import mesh_from_config
     from ..utils.profiling import StepTimer
     from ..utils.text import codes_to_text
     from . import checkpoint as ckpt
@@ -68,7 +93,10 @@ def train(features_npz=None, text_files=(), config=None,
 
     config = config or Config()
     tc = config.train
-    model, state = build_transformer_state(config, tc.seed, device)
+    mesh = mesh or mesh_from_config(tc)
+    model, state = build_transformer_state(config, mesh, tc.seed,
+                                           shard_tp=mesh.n_model > 1,
+                                           device=device)
     dev = next(model.parameters()).device
 
     if resume:
@@ -112,8 +140,8 @@ def train(features_npz=None, text_files=(), config=None,
     for epoch in range(start_epoch, tc.epochs):
         for _ in range(steps_per_epoch):
             state, metrics = transformer_train_step(
-                state, next(it), dropout_seed=tc.seed,
-                accum_steps=tc.accum_steps)
+                state, shard_batch(next(it), mesh, tc.accum_steps),
+                dropout_seed=tc.seed, accum_steps=tc.accum_steps)
             running.update(metrics)
             timer.tick(dev)
             if state.step % tc.log_every == 0:
@@ -125,7 +153,8 @@ def train(features_npz=None, text_files=(), config=None,
 
         vrun = RunningMetrics()
         for _ in range(val_steps):
-            vrun.update(transformer_eval_step(state, next(vit)))
+            vrun.update(transformer_eval_step(state,
+                                              shard_batch(next(vit), mesh)))
         vs = vrun.summary()
         logger.log(state.step, vs, prefix="val")
 
@@ -162,6 +191,7 @@ def main(argv=None):
         "--attn-impl": ("transformer", "attn_impl", str),
         "--accum": ("train", "accum_steps", int),
     })
+    join_ranks(kw)
     train(config=cfg, **kw)
     return 0
 
