@@ -175,6 +175,36 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    model's default page path against its host path on the GPU, bit for
    bit, on a page that yields detections, and a tiny bucketed decode on
    the card, on the host stream and on a FeatureStream, against the CPU.
+11. The tools (``findtextcenternet_tpu_torch/tools/``), run after phase 8,
+   counts set to 0 just before: ``fused_attn_check``'s kernel check at
+   (16,400,12,64) f32 with a tail mask (every element within 1e-4 +
+   1e-4 x |einsum|) and its decode check (detector "s", the full
+   Transformer, 8 windows on the xla and fused routes: text agreement
+   and margins reported, the kernel must launch); ``decode_bench`` at
+   the full Transformer, batch 16, 8 rounds (ms on CUDA events and peak
+   share for f32 and bf16 hoisted, per-round and fused; the f32
+   per-round codes must equal the hoisted ones, the two top-3 forms
+   agree); ``trained_margin_check`` with ``MARGIN_ARGV`` (train3 through
+   the attention kernels, then the held-out windows on both routes: the
+   gate, identical text at char_accuracy >= 0.8, must hold; margins
+   reported); ``annotate.process_image1`` on the serving page with the
+   full-width pipeline (NMS launches) and ``process_image4`` on the
+   page's own ~1,500 boxes as the corrected annotation; the vectors at
+   all those centers (``_features_at_centers``) and the ``.npy`` rows
+   of ``process_image4`` against ``owned_tile_features``, a gather from
+   the feature map of each center's owning tile written apart from the
+   tool (within 1e-3 x max(1, |max|)), and the vectors at
+   ``run_detector``'s centers on the page's first tile (the same crop in
+   both tilings; a center on its top or left edge belongs to no tile of
+   the tool's tiling and is left out) against the f16 features it
+   returns there (within 1e-2 x max(1, |max|)); ``tf_import``: a
+   synthetic xl npz (bf16 values) loaded into that pipeline's detector
+   and exported again, bit-equal; ``summary``: the xl TextDetectorModel
+   must count 262,350,422 parameters, the Transformer's count is
+   printed. The kernels line carries each tool's launches, counts set
+   to 0 before each tool, with the shapes its kernels ran at
+   (``tools_launches`` beside ``kernels``: no row of ``kernels`` is the
+   shape of a tool's launches).
 
 The second-to-last line is the kernels JSON (one row per kernel and shape,
 with the launches of the path it serves), the last line
@@ -226,6 +256,15 @@ DET_ACCUM = 4
 # checkpoints, and the pages it harvests
 CKPT_ROOT = os.path.join(tempfile.gettempdir(), f"chip_smoke_{os.getpid()}")
 HARVEST_PAGES = 8
+# the tools phase: decode_bench's windows and rounds, and the
+# trained_margin_check settings: with the tool's defaults (seq 64, lr 1e-3)
+# the cross-attention alignment had not formed after 1,200 steps on the
+# card; at seq 16 and lr 1e-2 it forms near step 1,000 (char_accuracy 0.80
+# there, 1.0 from 1,200 on, in CPU runs of the tool resumed epoch by
+# epoch), so 1,600 steps leave a margin
+DECODE_BENCH_BATCH, DECODE_BENCH_ROUNDS = 16, 8
+MARGIN_ARGV = ["--hira-only", "--seq", "16", "--lr", "1e-2", "--epochs",
+               "8", "--steps", "200"]
 
 
 def log(*args):
@@ -269,49 +308,75 @@ def synth_page_and_boxes(rng, char: int = CHAR, line_gap: float = 1.7):
     return img, np.asarray(locs, np.float32), lines, seps
 
 
-def event_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean wall time per call on the device clock (CUDA events)."""
+def profiled_kernels(fn, calls: int, match=None):
+    """(device µs, launches) of the CUDA kernels ``calls`` calls of ``fn``
+    launch (all of them, or those whose name contains ``match``), from a
+    profile that starts after a warm-up cycle of the profiler (one call).
+    On the card machine the profiler has dropped the first launches of a
+    window (a cold profile the first 1-3 of 50, a warm one the first of
+    50 and 41 of a decode's 5,438): the calls start 10 ms into the
+    window behind four spin kernels, four more follow them, the window
+    closes 10 ms after, and the spin kernels are not counted."""
     import torch
-    for _ in range(warmup):
+    from torch.profiler import ProfilerActivity, profile, schedule
+    out = {}
+
+    def ready(prof):
+        total, seen = 0.0, 0
+        for ev in prof.key_averages():
+            # kernels, copies and fills; runtime calls take no device time
+            if ev.self_device_time_total > 0 and (
+                    match in ev.key if match is not None
+                    else "spin_kernel" not in ev.key):
+                total += ev.self_device_time_total
+                seen += ev.count
+        out["r"] = (total, seen)
+
+    def pad():
+        for _ in range(4):
+            torch.cuda._sleep(100_000)  # ATen's spin_kernel, ~50 µs
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=ready) as prof:
         fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(0.01)
+        pad()
+        for _ in range(calls):
+            fn()
+        pad()
+        torch.cuda.synchronize()
+        time.sleep(0.01)
+        prof.step()
+    return out["r"]
 
 
-def device_ms(fn, iters: int, match=None, per_call: int = 1) -> float:
+def device_ms(fn, iters: int, match=None, per_call=None,
+              attempts: int = 3) -> float:
     """Mean device time per call of the CUDA kernels ``fn`` launches (all
     of them, or those whose name contains ``match``), from the profiler;
-    launch gaps on the host are not counted. Raises if the profiler saw no
-    device time. With ``match``, ``fn`` launches ``per_call`` such kernels:
-    where the profiler saw fewer launches than ``iters`` calls make, the
-    mean is taken over the launches it saw, and a line says so."""
+    launch gaps on the host are not counted. The profile must see every
+    launch of the ``iters`` calls: ``per_call`` a call where given, else
+    as many as a profile of one call sees. CUPTI has lost records on the
+    card machine: a profile that saw fewer (or more) is made again, and
+    after ``attempts`` profiles the function raises."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total, seen = 0.0, 0
-    for ev in prof.key_averages():
-        if match is None or match in ev.key:
-            total += ev.self_device_time_total
-            seen += ev.count
-    if total <= 0:
-        raise RuntimeError(f"profiler saw no device time for {match}")
-    if match is not None and seen != iters * per_call:
-        log(f"profiler saw {seen} launches of {match} in {iters} calls "
-            f"({per_call} a call); mean over those it saw")
-        return total / 1e3 / seen * per_call
-    return total / 1e3 / iters
+    for attempt in range(attempts):
+        want = per_call
+        if want is None:
+            want = profiled_kernels(fn, 1, match)[1]
+        total, seen = profiled_kernels(fn, iters, match)
+        if want > 0 and seen == iters * want:
+            return total / 1e3 / iters
+        log(f"profiler saw {seen} launches of {match or 'all kernels'} in "
+            f"{iters} calls of {want} (profile {attempt + 1} of "
+            f"{attempts})")
+    raise RuntimeError(f"the profiler lost launches of "
+                       f"{match or 'all kernels'} in {attempts} profiles")
 
 
 def host_us(fn, calls: int = 1000) -> float:
@@ -478,6 +543,7 @@ def nms_rows(rng) -> dict:
     import torch
 
     from findtextcenternet_tpu_torch.ops import nms
+    from findtextcenternet_tpu_torch.tools.timing import time_ms
 
     dev = torch.device("cuda")
     one = torch.zeros(1, device=dev)
@@ -523,7 +589,8 @@ def nms_rows(rng) -> dict:
             # logits and mask read once, the output written once
             "bound_ms": 3 * b * h * w * 4 / PEAK_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "library_ms": None,
-            "wall_ms": event_ms(call, 200), "host_us_per_call": host_us(call),
+            "wall_ms": time_ms(call, "cuda", 200, warmup=3),
+            "host_us_per_call": host_us(call),
             "launch_floor_ms": floor["fill_1_element_ms"],
             "shape": [b, h, w], "path": "serving",
         }
@@ -562,6 +629,7 @@ def phase_kernels():
 
     from findtextcenternet_tpu_torch.models.transformer import make_key_mask
     from findtextcenternet_tpu_torch.ops import attention
+    from findtextcenternet_tpu_torch.tools.timing import time_ms
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -618,8 +686,9 @@ def phase_kernels():
                 lambda: attention.attention_plain(q, k, v, mask), 50),
             **attention_bounds(flops, nbytes, peak),
             "library_ms": device_ms(library, 50),
-            "wall_ms": event_ms(
-                lambda: attention.fused_attention(q, k, v, mask), 50),
+            "wall_ms": time_ms(
+                lambda: attention.fused_attention(q, k, v, mask), "cuda",
+                50, warmup=3),
             "shape": [B, T, H, hd], "dtype": name, "path": "serving",
             "keys": "lengths 400/311/57/0",
         }
@@ -654,7 +723,8 @@ def phase_kernels():
         "plain_ms": device_ms(lambda: attention.attention_plain(q, k, v), 50),
         **attention_bounds(flops, nbytes, PEAK_SPLIT_TF32_FLOPS),
         "library_ms": device_ms(library, 50),
-        "wall_ms": event_ms(lambda: attention.fused_attention(q, k, v), 50),
+        "wall_ms": time_ms(lambda: attention.fused_attention(q, k, v),
+                           "cuda", 50, warmup=3),
         "shape": [B, T, H, hd], "dtype": "float32", "path": "serving",
         "keys": "all (no mask)",
     }
@@ -695,6 +765,7 @@ def training_kernel_rows(rng):
 
     from findtextcenternet_tpu_torch.models.transformer import make_key_mask
     from findtextcenternet_tpu_torch.ops import attention
+    from findtextcenternet_tpu_torch.tools.timing import time_ms
 
     dev = torch.device("cuda")
     B, T, H, hd = 32, 400, 12, 64
@@ -776,8 +847,8 @@ def training_kernel_rows(rng):
                            10),
         **attention_bounds(4 * flops, nbytes, PEAK_SPLIT_TF32_FLOPS),
         library_ms=lib_fwd_ms,
-        wall_ms=event_ms(lambda: attention.attention_fwd(
-            q, k, v, mask, with_lse=True), 20))
+        wall_ms=time_ms(lambda: attention.attention_fwd(
+            q, k, v, mask, with_lse=True), "cuda", 20, warmup=3))
     info["attention_train_fwd"] = reckoned(
         mask, 4 * flops, nbytes, MS_BEFORE["attention_train_fwd"])
     # q, k, v, out, dOut in; dq, dk, dv out
@@ -795,7 +866,7 @@ def training_kernel_rows(rng):
         plain_ms=device_ms(lambda: attention.attention_bwd_plain(
             q, k, v, mask, g), 5),
         **attention_bounds(10 * flops, nbytes, PEAK_SPLIT_TF32_FLOPS),
-        library_ms=lib_bwd_ms, wall_ms=event_ms(bwd, 10))
+        library_ms=lib_bwd_ms, wall_ms=time_ms(bwd, "cuda", 10, warmup=3))
     info["attention_train_bwd"] = reckoned(
         mask, 10 * flops, nbytes, MS_BEFORE["attention_train_bwd"])
     return rows, info
@@ -1135,6 +1206,7 @@ def bucket_rows(calls, per_len) -> dict:
     import torch.nn.functional as F
 
     from findtextcenternet_tpu_torch.ops import attention
+    from findtextcenternet_tpu_torch.tools.timing import time_ms
 
     rows = {}
     for (shape, masked), (q, k, v, mask) in sorted(calls.items()):
@@ -1176,7 +1248,7 @@ def bucket_rows(calls, per_len) -> dict:
                 lambda: attention.attention_plain(q, k, v, mask), 50),
             **attention_bounds(flops, nbytes, PEAK_SPLIT_TF32_FLOPS),
             "library_ms": device_ms(library, 50),
-            "wall_ms": event_ms(kernel, 50),
+            "wall_ms": time_ms(kernel, "cuda", 50, warmup=3),
             "shape": [b, tq, h, hd], "dtype": "float32",
             "path": "serving, decode_len_buckets",
             "keys": f"{tk}, lengths {min(lengths)}-{max(lengths)}",
@@ -1582,48 +1654,6 @@ def detector_families(prof, steps: int):
                   for t, c, f, k in top[:15]]
 
 
-def detector_step_flops(model, batch, fmask_k: int) -> dict:
-    """The step's convolution and dense-layer flops, counted by forward
-    hooks on one micro-batch's forward: 2 x MACs each; a step is the
-    forward, the weight gradients (the forward's flops again) and the input
-    gradients (again, less the stem's: the images need none)."""
-    import torch
-
-    from findtextcenternet_tpu_torch.models.detector import topk_fmask
-
-    counted = {"conv": 0, "dense": 0}
-    stem = model.detector.backbone.features[0][0]
-    stem_flops = []
-
-    def hook(mod, args, out):
-        if isinstance(mod, torch.nn.Conv2d):
-            k = mod.weight[0].numel()          # in/groups x kh x kw
-            f = 2 * out.numel() * k
-            counted["conv"] += f
-            if mod is stem:
-                stem_flops.append(f)
-        else:
-            counted["dense"] += 2 * (args[0].numel() // mod.in_features) \
-                * mod.in_features * mod.out_features
-
-    hooks = [m.register_forward_hook(hook) for m in model.modules()
-             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
-    try:
-        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
-            fidx = topk_fmask(batch["labelmap"][..., 0], fmask_k)
-            was = model.training
-            model.eval()
-            model(batch["image"], fidx)
-            model.train(was)
-    finally:
-        for h in hooks:
-            h.remove()
-    fwd = counted["conv"] + counted["dense"]
-    return {"forward_flops": fwd, "conv_forward_flops": counted["conv"],
-            "dense_forward_flops": counted["dense"],
-            "step_flops": 3 * fwd - stem_flops[0]}
-
-
 def phase_detector_training():
     """train1's full-width step on the card (``Config()`` as train1 builds
     it: the xl detector, feature_dim 100, decoder_mid 2048, head_conv 192,
@@ -1639,6 +1669,8 @@ def phase_detector_training():
     from torch.profiler import ProfilerActivity, profile
 
     from findtextcenternet_tpu_torch.config import Config
+    from findtextcenternet_tpu_torch.tools.train_bench import (
+        detector_step_flops)
     from findtextcenternet_tpu_torch.train.steps import (
         detector_batch_to_device, detector_train_step)
     from findtextcenternet_tpu_torch.train.train1 import (
@@ -2956,6 +2988,274 @@ def phase_mesh(det_batches):
             "attention_train_bwd": train["mesh"]["launches"]["attention_bwd"]}
 
 
+def owned_tile_features(pipe, img, centers):
+    """The detector's feature vectors at page coordinates ``centers``,
+    apart from ``annotate._features_at_centers``: the page padded with
+    white to whole steps of 3/4 of a tile, each tile's whole feature map,
+    and for each center the cell under it in the map of the last tile (in
+    row order) whose central region holds it: the open interval from 1/8
+    to 7/8 of the map plus one cell, out to the padded page's edges.
+    Returns the vectors (zero where no tile owns a center) and the owned
+    mask."""
+    import torch
+
+    from findtextcenternet_tpu_torch.const import SCALE
+    tile = pipe.cfg.inference.tile_size
+    step, ms = tile * 3 // 4, tile // SCALE
+    h, w = img.shape[:2]
+    grow = lambda n: tile + -(-max(0, n - tile) // step) * step  # noqa
+    ph, pw = grow(h), grow(w)
+    page = np.full((ph, pw, 3), 255, np.uint8)
+    page[:h, :w] = img
+    out = np.zeros((len(centers), pipe.cfg.detector.feature_dim),
+                   np.float32)
+    owned = np.zeros(len(centers), bool)
+    cx, cy = centers[:, 0], centers[:, 1]
+    for y0 in range(0, ph - tile + 1, step):
+        for x0 in range(0, pw - tile + 1, step):
+            lo_x = x0 + (ms // 8 * SCALE if x0 else 0)
+            hi_x = x0 + ((ms * 7 // 8 + 1) * SCALE if x0 + tile < pw
+                         else tile)
+            lo_y = y0 + (ms // 8 * SCALE if y0 else 0)
+            hi_y = y0 + ((ms * 7 // 8 + 1) * SCALE if y0 + tile < ph
+                         else tile)
+            mine = (lo_x < cx) & (cx < hi_x) & (lo_y < cy) & (cy < hi_y)
+            if not mine.any():
+                continue
+            x = torch.from_numpy(page[y0:y0 + tile, x0:x0 + tile]).to(
+                pipe.device)[None].float() / 255.0
+            with torch.inference_mode():
+                fmap = pipe._apply_fn(x)[1][0].float().cpu().numpy()
+            col = np.floor((cx[mine] - x0) / SCALE).astype(int)
+            row = np.floor((cy[mine] - y0) / SCALE).astype(int)
+            out[mine] = fmap[row, col]
+            owned |= mine
+    return out, owned
+
+
+def phase_tools(smi: str) -> dict:
+    """The port's tools on the card (phase 11 of the module doc); returns
+    each tool's kernel launches (counts set to 0 just before each tool)
+    beside the shapes its kernels ran at."""
+    import torch
+    from PIL import Image
+
+    from findtextcenternet_tpu_torch.config import Config
+    from findtextcenternet_tpu_torch.infer.pipeline import OCRPipeline
+    from findtextcenternet_tpu_torch.io import tf_import
+    from findtextcenternet_tpu_torch.models.detector import (
+        TextDetectorModel)
+    from findtextcenternet_tpu_torch.models.summary import param_count
+    from findtextcenternet_tpu_torch.models.transformer import (
+        Transformer, TransformerDims)
+    from findtextcenternet_tpu_torch.ops import attention, nms
+    from findtextcenternet_tpu_torch.tools import (
+        annotate, decode_bench, fused_attn_check, trained_margin_check)
+
+    t_phase = time.perf_counter()
+    counters = (nms.launches, attention.launches, attention.bwd_launches)
+    per_tool = {}
+
+    def launched(tool: str, shapes: str) -> dict:
+        """The tool's launches since the counts were last set to 0; sets
+        them to 0 for the next tool."""
+        per_tool[tool] = {c.name: c.count for c in counters}
+        per_tool[tool]["shapes"] = shapes
+        for c in counters:
+            c.reset()
+        return per_tool[tool]
+
+    for c in counters:
+        c.reset()
+
+    # fused_attn_check: the kernel against the einsum, then the decode of
+    # the same windows on both routes (detector "s", the full Transformer)
+    k = fused_attn_check.kernel_check(device="cuda")
+    log(f"tools: fused_attn_check kernel (16,400,12,64) f32, tail mask: "
+        f"{json.dumps(k)} (bound: every element within 1e-4 + 1e-4 x "
+        f"|einsum|)")
+    if not (k["within_1e-4"] and k["nan_pattern_match"]):
+        raise AssertionError("fused_attn_check: the attention kernel is "
+                             "outside 1e-4 of the einsum")
+    d = fused_attn_check.decode_check(batch=8, device="cuda")
+    log(f"tools: fused_attn_check decode, 8 windows of 398 glyphs, random "
+        f"weights, xla vs fused: {json.dumps(d)}")
+    if d["fused_kernel_launches"] <= 0:
+        raise AssertionError("fused_attn_check's fused decode launched no "
+                             "attention kernel")
+
+    launched("fused_attn_check", "attention_fwd (16,400,12,64) f32; the "
+             "decode of 8 windows, detector s, the full Transformer "
+             "(8,400,12,64)")
+
+    # decode_bench at the full Transformer
+    t0 = time.perf_counter()
+    b = decode_bench.run(TransformerDims(), batch=DECODE_BENCH_BATCH,
+                         rounds=DECODE_BENCH_ROUNDS, iters=3, device="cuda")
+    codes = b.pop("codes")
+    log(f"tools: decode_bench (768-d 12-head 10+10 blocks, 400/400, batch "
+        f"{DECODE_BENCH_BATCH}, {DECODE_BENCH_ROUNDS} rounds; CUDA events, "
+        f"mean of 3; {smi}) in {time.perf_counter() - t0:.1f} s:")
+    for name in ("f32", "bf16"):
+        log(f"tools: decode_bench {name}: " + ", ".join(
+            f"{path} {b[f'{name}_{path}_ms']:.3f} ms, "
+            f"{b[f'{name}_{path}_tflop']:.4f} TFLOP, peak share "
+            f"{b[f'{name}_{path}_peak_share']:.5f}"
+            for path in ("hoisted", "per_round_full", "fused_attn"))
+            + f"; per-round codes == hoisted: {b[f'{name}_paths_agree']}, "
+            f"fused codes == hoisted: {b[f'{name}_fused_attn_codes_agree']}"
+            f", fused launches {b[f'{name}_fused_attn_launches']}")
+    log(f"tools: decode_bench CRT top-3: argmax passes "
+        f"{b['topk3_argmax_ms']:.4f} ms, torch.topk {b['topk3_sort_ms']:.4f}"
+        f" ms, equal: {b['topk3_impls_agree']}; {codes['f32'].shape} codes")
+    if not (b["f32_paths_agree"] and b["topk3_impls_agree"]
+            and b["f32_fused_attn_launches"] > 0):
+        raise AssertionError("decode_bench: the per-round path or the CRT "
+                             "top-k disagree, or no kernel launched")
+
+    launched("decode_bench", f"attention_fwd ({DECODE_BENCH_BATCH},400,12,64)"
+             f" f32 and bf16, {DECODE_BENCH_ROUNDS} rounds at most")
+
+    # trained_margin_check: the gate at trained weights
+    t0 = time.perf_counter()
+    m = trained_margin_check.run(trained_margin_check.parse_args(
+        MARGIN_ARGV + ["--ckpt-dir", os.path.join(CKPT_ROOT, "margin"),
+                       "--device", "cuda"]))
+    log(f"tools: trained_margin_check {' '.join(MARGIN_ARGV)} in "
+        f"{time.perf_counter() - t0:.1f} s ({smi}): trained "
+        f"{json.dumps(m['trained'])}; random init "
+        f"{json.dumps(m['random_init'])}; training attention backward "
+        f"launches {m['train_attention_bwd_launches']}; gate "
+        f"{m['gate_passes']}")
+    if not m["gate_passes"]:
+        raise AssertionError("trained_margin_check: the gate failed")
+
+    launched("trained_margin_check", "attention_fwd and attention_bwd "
+             "(64,16,4,32) in train3's steps, attention_fwd (32,16,4,32) "
+             "in the decode of the 32 held-out windows")
+
+    # annotate on the serving page with the full-width pipeline
+    cfg = Config()
+    pipe = OCRPipeline(cfg, seed=0)
+    rng = np.random.default_rng(0)
+    img, raw_locs, _, _ = synth_page_and_boxes(rng)
+    adir = os.path.join(CKPT_ROOT, "annotate")
+    os.makedirs(adir, exist_ok=True)
+    path = os.path.join(adir, "page.png")
+    Image.fromarray(img).save(path)
+    before = nms.launches.count
+    t0 = time.perf_counter()
+    first = annotate.process_image1(pipe, path)
+    ms1 = (time.perf_counter() - t0) * 1e3
+    n_nms = nms.launches.count - before
+    # the page's own boxes as the human-corrected annotation; each box's
+    # text is its index, so the boxlist maps the .npy rows back to boxes
+    boxes = [{"cx": float(r[1]), "cy": float(r[2]), "w": float(r[3]),
+              "h": float(r[4]), "p_det": float(r[0]), "p_code1": 0.0,
+              "p_code2": 0.0, "p_code4": 0.0, "p_code8": 0.0,
+              "text": str(i)}
+             for i, r in enumerate(r for r in raw_locs if r[0] >= 0.6)]
+    with open(path + ".json", "w", encoding="utf-8") as f:
+        json.dump({"textbox": boxes}, f)
+    t0 = time.perf_counter()
+    annotate.process_image4(pipe, path)
+    ms4 = (time.perf_counter() - t0) * 1e3
+    with open(path + ".json", encoding="utf-8") as f:
+        boxlist = json.load(f)["boxlist"]
+    vecs = np.load(path + ".npy")
+    log(f"tools: annotate process_image1 {len(first['textbox'])} boxes "
+        f"(random weights), {n_nms} NMS launches, {ms1:.1f} ms; "
+        f"process_image4 on {len(boxes)} corrected boxes: {len(boxlist)} "
+        f"ordered, vectors {vecs.shape} {vecs.dtype}, {ms4:.1f} ms ({smi})")
+    if n_nms <= 0 or vecs.shape != (len(boxlist), cfg.detector.feature_dim) \
+            or not np.isfinite(vecs.astype(np.float32)).all():
+        raise AssertionError("annotate: no NMS launch or bad vectors")
+    # the vectors at every box center against a gather from the feature
+    # map of the tile that owns it, made here apart from the tool
+    centers = np.asarray([[b["cx"], b["cy"]] for b in boxes], np.float32)
+    got = annotate._features_at_centers(pipe, img, centers)
+    want, owned = owned_tile_features(pipe, img, centers)
+    rows = [int(e["text"]) for e in boxlist]
+    bound = 1e-3 * max(1.0, float(np.abs(want).max()))
+    err = float(np.abs(got - want).max())
+    err4 = float(np.abs(vecs.astype(np.float32) - want[rows]).max())
+    log(f"tools: annotate vectors at {len(centers)} box centers "
+        f"({int(owned.sum())} owned by a tile, {int((~owned).sum())} on the "
+        f"page's top or left edge owned by none) vs a gather from each "
+        f"owning tile's feature map: max_abs_err {err:.3g}; the "
+        f"{len(rows)} .npy rows of process_image4: {err4:.3g} (|max| "
+        f"{float(np.abs(want).max()):.3g}, bound 1e-3 x max(1, |max|): the "
+        f"same forward, a few f16 rounding steps at most)")
+    if owned.sum() < 0.9 * len(centers) or not err <= bound \
+            or not err4 <= bound \
+            or np.abs(got[~owned]).max(initial=0.0) != 0.0:
+        raise AssertionError("annotate: vectors differ from the owning "
+                             "tiles' feature maps")
+    # and at run_detector's own centers on the page's first tile (the
+    # same crop in both tilings): the f16 features the pipeline gathers
+    # there. A center on the top or left edge (x or y 0) is owned by no
+    # tile of the tool's tiling (open bounds) and is left out
+    tile = np.ascontiguousarray(img[:cfg.inference.tile_size,
+                                    :cfg.inference.tile_size])
+    page = pipe.run_detector(tile)
+    inside = (page.locations[:, 1] > 0) & (page.locations[:, 2] > 0)
+    got = annotate._features_at_centers(
+        pipe, tile, page.locations[inside, 1:3].astype(np.float32))
+    want = np.asarray(page.features, np.float32)[inside]
+    err = float(np.abs(got.astype(np.float16).astype(np.float32)
+                       - want).max()) if len(want) else float("nan")
+    log(f"tools: annotate vectors at {len(want)} detected centers of the "
+        f"page's first tile ({int((~inside).sum())} on its top or left "
+        f"edge left out) vs run_detector's features: max_abs_err "
+        f"{err:.3g} (bound 1e-2 x max(1, |max|))")
+    if not len(want) or \
+            not err <= 1e-2 * max(1.0, float(np.abs(want).max())):
+        raise AssertionError("annotate: vectors differ from run_detector's")
+
+    launched("annotate", "nms_sigmoid_masked on the serving page's tiles "
+             "(B,192,192) and on its first tile")
+
+    # tf_import: a synthetic xl npz (bf16 values: the serving detector
+    # holds bf16) into the card's detector and out again, bit for bit
+    t0 = time.perf_counter()
+    shapes = tf_import.export_backbone_npz(pipe.detector, "xl")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    npz = {k: torch.randn(v.shape, generator=gen, device="cuda")
+           .to(torch.bfloat16).float().cpu().numpy()
+           for k, v in shapes.items()}
+    npz_path = os.path.join(adir, "efficientnetv2-xl.npz")
+    np.savez(npz_path, **npz)
+    tf_import.load_backbone_npz(pipe.detector, npz_path, "xl")
+    back = tf_import.export_backbone_npz(pipe.detector, "xl")
+    same = sorted(back) == sorted(npz) and all(
+        np.array_equal(back[k].view(np.uint32), v.view(np.uint32))
+        for k, v in npz.items())
+    n_vals = sum(v.size for v in npz.values())
+    log(f"tools: tf_import {len(npz)} tensors, {n_vals} values of a "
+        f"synthetic xl npz into the card's detector and back: bit-equal "
+        f"{same} ({time.perf_counter() - t0:.1f} s)")
+    if not same:
+        raise AssertionError("tf_import: the npz round trip is not exact")
+    del pipe
+
+    # summary: the xl TextDetectorModel and the full Transformer
+    det = cfg.detector
+    with torch.device("meta"):
+        n_det = param_count(TextDetectorModel(
+            det.model_size, det.feature_dim, det.decoder_mid_dim,
+            head_conv_dim=det.head_conv_dim))
+        n_tf = param_count(Transformer(TransformerDims()))
+    log(f"tools: summary xl TextDetectorModel {n_det:,} parameters "
+        f"(required 262,350,422), Transformer {n_tf:,}")
+    if n_det != 262_350_422:
+        raise AssertionError(f"summary: {n_det} detector parameters")
+
+    launched("tf_import, summary", "none")
+    log(f"tools phase: {time.perf_counter() - t_phase:.1f} s, launches "
+        f"{json.dumps(per_tool)}")
+    return per_tool
+
+
 def phase_reference():
     """Small input: GPU (kernels) against CPU (plain versions)."""
     import torch
@@ -3071,6 +3371,7 @@ def main() -> int:
             phase_detector_whole_batch(det, batches)
         del batches
         phase_artifacts(*phase_weights_loop(det_ckpt, tf_ckpt))
+        tools_launches = phase_tools(smi)
     finally:
         shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     phase_reference()
@@ -3092,7 +3393,8 @@ def main() -> int:
         f"{json.dumps(extra)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
-    log(json.dumps({"kernels": kernels_line}))
+    log(json.dumps({"kernels": kernels_line,
+                    "tools_launches": tools_launches}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

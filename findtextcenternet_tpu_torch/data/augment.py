@@ -77,6 +77,17 @@ class AffineParams:
             *self.inv_rect], np.float64)
 
 
+def inverse_partial(image: np.ndarray, rng: np.random.Generator) -> None:
+    """Invert a random axis-aligned subrectangle of a uint8 image in place
+    (the same draws as :func:`sample_params`' inversion)."""
+    im_h, im_w = image.shape[:2]
+    h = int(rng.uniform() * (im_h - 1))
+    w = int(rng.uniform() * (im_w - 1))
+    i = int(rng.uniform() * (im_h - h + 1))
+    j = int(rng.uniform() * (im_w - w + 1))
+    image[i:i + h, j:j + w] = 255 - image[i:i + h, j:j + w]
+
+
 def sample_params(image: np.ndarray, position: np.ndarray,
                   rng: np.random.Generator,
                   out_hw: Tuple[int, int] = (IMAGE_HEIGHT, IMAGE_WIDTH),

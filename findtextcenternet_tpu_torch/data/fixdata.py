@@ -66,6 +66,27 @@ def load_fixdata_item(json_path: str) -> Optional[Dict]:
     }
 
 
+def filter_fixdata(dirname: str) -> int:
+    """Truncate multi-codepoint text fields in the annotation JSONs of
+    ``dirname`` to their first codepoint (upstream
+    ``dataset/filter_fixdata.py``); returns the number of files rewritten."""
+    fixed = 0
+    for path in glob.glob(os.path.join(dirname, "*.json")):
+        with open(path, encoding="utf-8") as f:
+            data = json.load(f)
+        changed = False
+        for tb in data.get("textbox", []):
+            t = tb.get("text")
+            if t and len(t) > 1:
+                tb["text"] = t[0]
+                changed = True
+        if changed:
+            with open(path, "w", encoding="utf-8") as f:
+                json.dump(data, f, ensure_ascii=False, indent=1)
+            fixed += 1
+    return fixed
+
+
 class FixDataLoader:
     """Iterates augmented batches from an annotation directory."""
 

@@ -1,5 +1,6 @@
 """Build the native host libraries (line engine, host ops, the training
-augmenter, the glyph rasterizer of the page factory) at first use.
+augmenter, the glyph rasterizer of the page factory) and the line
+engine's wire-protocol program ``linedetect`` at first use.
 
 The sources are the repository's ``native/lineengine/src``,
 ``native/hostops/src``, ``native/augment`` and ``native/rasterizer/src``;
@@ -28,17 +29,25 @@ NATIVE_DIR = os.path.join(os.path.dirname(PKG_DIR), "native")
 BUILD_DIR = os.path.join(PKG_DIR, "build", "native")
 CXXFLAGS = ("-std=c++17", "-O3", "-fPIC")
 
+_ENGINE = ("grid.cpp", "linefind.cpp", "track.cpp", "assemble.cpp",
+           "doubleline.cpp", "ruby.cpp", "orphan.cpp", "after.cpp",
+           "blocks.cpp", "spaces.cpp", "pipeline.cpp", "lm.cpp")
+_ENGINE_HEADERS = ("engine.h", "types.h", "lm.h")
+
 # library -> (source dir, sources, headers the sources include)
 LIBRARIES: Dict[str, Tuple[str, Tuple[str, ...], Tuple[str, ...]]] = {
-    "lineengine": ("lineengine/src",
-                   ("grid.cpp", "linefind.cpp", "track.cpp", "assemble.cpp",
-                    "doubleline.cpp", "ruby.cpp", "orphan.cpp", "after.cpp",
-                    "blocks.cpp", "spaces.cpp", "pipeline.cpp", "lm.cpp",
-                    "capi.cpp"),
-                   ("engine.h", "types.h", "lm.h")),
+    "lineengine": ("lineengine/src", _ENGINE + ("capi.cpp",),
+                   _ENGINE_HEADERS),
     "hostops": ("hostops/src", ("hostops.cpp",), ()),
     "augment": ("augment", ("augment.cpp",), ()),
     "rasterizer": ("rasterizer/src", ("ttf.cpp", "capi.cpp"), ("ttf.h",)),
+}
+
+# program -> (source dir, sources, headers); reads the wire protocol of
+# ``native/lineengine/src/main.cpp`` on stdin
+PROGRAMS: Dict[str, Tuple[str, Tuple[str, ...], Tuple[str, ...]]] = {
+    "linedetect": ("lineengine/src", _ENGINE + ("main.cpp",),
+                   _ENGINE_HEADERS),
 }
 
 _lock = threading.Lock()
@@ -55,18 +64,23 @@ def _toolchain() -> str:
 
 
 def build(name: str) -> str:
-    """Build one library if needed; returns its path."""
-    sub, sources, headers = LIBRARIES[name]
+    """Build one library of :data:`LIBRARIES` or program of
+    :data:`PROGRAMS` if needed; returns its path."""
+    shared = name in LIBRARIES
+    sub, sources, headers = (LIBRARIES if shared else PROGRAMS)[name]
     src_dir = os.path.join(NATIVE_DIR, sub)
-    out = shlib.hashed_path(BUILD_DIR, f"lib{name}", _toolchain(),
+    out = shlib.hashed_path(BUILD_DIR, f"lib{name}" if shared else name,
+                            _toolchain(),
                             [os.path.join(src_dir, f)
-                             for f in sources + headers])
+                             for f in sources + headers],
+                            ".so" if shared else "")
     if os.path.exists(out):
         build_seconds.setdefault(name, 0.0)
         return out
     t0 = time.perf_counter()
     shlib.compile_and_link("g++", CXXFLAGS, CXXFLAGS,
-                           [os.path.join(src_dir, f) for f in sources], out)
+                           [os.path.join(src_dir, f) for f in sources], out,
+                           shared=shared)
     build_seconds[name] = time.perf_counter() - t0
     return out
 

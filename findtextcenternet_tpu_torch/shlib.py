@@ -1,4 +1,4 @@
-"""Compile sources into a shared library at first use.
+"""Compile sources into a shared library (or a program) at first use.
 
 Shared by the CUDA kernels (``ops/kernels.py``, ``nvcc``) and the native
 host libraries (``infer/native.py``, ``g++``). A library's file name
@@ -20,21 +20,23 @@ from typing import Dict, Sequence
 
 
 def hashed_path(build_dir: str, stem: str, toolchain: str,
-                files: Sequence[str]) -> str:
-    """``build_dir/stem-<hash>.so``, hashed over ``toolchain`` (compiler
-    version and flags) and the name and contents of every file."""
+                files: Sequence[str], suffix: str = ".so") -> str:
+    """``build_dir/stem-<hash><suffix>``, hashed over ``toolchain``
+    (compiler version and flags) and the name and contents of every
+    file."""
     h = hashlib.sha256(toolchain.encode())
     for path in files:
         with open(path, "rb") as f:
             h.update(os.path.basename(path).encode() + b"\0" + f.read())
-    return os.path.join(build_dir, f"{stem}-{h.hexdigest()[:16]}.so")
+    return os.path.join(build_dir, f"{stem}-{h.hexdigest()[:16]}{suffix}")
 
 
 def compile_and_link(compiler: str, cflags: Sequence[str],
                      link_flags: Sequence[str], sources: Sequence[str],
-                     out: str) -> Dict[str, str]:
-    """Compile ``sources`` in parallel and link them into ``out``; returns
-    each source's compiler output by file name."""
+                     out: str, shared: bool = True) -> Dict[str, str]:
+    """Compile ``sources`` in parallel and link them into ``out`` (a
+    shared library, or a program where ``shared`` is false); returns each
+    source's compiler output by file name."""
     build_dir = os.path.dirname(out)
     os.makedirs(build_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
@@ -57,9 +59,10 @@ def compile_and_link(compiler: str, cflags: Sequence[str],
                 if p.poll() is None:
                     p.kill()
                     p.communicate()
-        tmp_so = os.path.join(tmp, "lib.so")
+        tmp_so = os.path.join(tmp, "linked")
         link = subprocess.run(
-            [compiler, *link_flags, "-shared", "-o", tmp_so,
+            [compiler, *link_flags, *(["-shared"] if shared else []),
+             "-o", tmp_so,
              *[obj for _, obj, _ in procs]],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:

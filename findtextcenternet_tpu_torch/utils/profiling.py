@@ -1,16 +1,46 @@
-"""Step timing for training loops.
+"""Profiling and step timing.
 
-The port's ``StepTimer`` (``findtextcenternet_tpu/utils/profiling.py``): a
-rolling window of host-clock step times. PyTorch returns before the card
-finishes, so :meth:`StepTimer.tick` can synchronise a CUDA device first.
+The port's copy of ``findtextcenternet_tpu/utils/profiling.py``:
+
+* :func:`trace` — a ``torch.profiler`` context that writes a Chrome trace
+  (``chrome://tracing`` or ui.perfetto.dev) into a directory;
+* :func:`sync` — wait for the queued work of a CUDA device;
+* :class:`StepTimer` — a rolling window of host-clock step times. PyTorch
+  returns before the card finishes, so :meth:`StepTimer.tick` can
+  synchronise a CUDA device first.
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import time
-from typing import List, Optional
+from typing import Iterator, List, Optional
 
 import numpy as np
 import torch
+
+
+@contextlib.contextmanager
+def trace(logdir: str, device=None) -> Iterator[str]:
+    """Profile the body (host ops, and the device's kernels when
+    ``device`` is a CUDA device) into ``logdir/trace.json``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device is not None and torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield logdir
+        sync(device)
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def sync(device=None) -> None:
+    """Wait for the queued work of a CUDA ``device`` (a no-op on the CPU,
+    whose ops finish before they return)."""
+    if device is not None and torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 class StepTimer:
@@ -24,8 +54,7 @@ class StepTimer:
     def tick(self, device=None) -> None:
         """Mark the end of a step (after waiting for the queued work of a
         CUDA ``device``)."""
-        if device is not None and torch.device(device).type == "cuda":
-            torch.cuda.synchronize(device)
+        sync(device)
         now = time.perf_counter()
         if self._last is not None:
             self._times.append(now - self._last)

@@ -30,6 +30,16 @@ def decode_ruby(text: str, outtype: str = "aozora") -> str:
     return text
 
 
+def encode_rubyhtml(text: str) -> str:
+    """HTML ``<ruby>`` markup -> the interlinear-annotation markers (the
+    inverse of ``decode_ruby(..., "html")``)."""
+    return re.sub(
+        r"<ruby><rb>(.*?)</rb><rp>\(</rp><rt>(.*?)</rt><rp>\)</rp></ruby>",
+        "\ufff9\\1\ufffa\\2\ufffb",
+        text,
+    )
+
+
 def codes_to_text(codes) -> str:
     """Render a decoded UTF-32 code sequence to a python string.
 

@@ -17,6 +17,7 @@ CPU run: f32 with TF32 off, convolution sums in another order, atol/rtol
 1e-4.
 """
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -1047,3 +1048,126 @@ def test_mesh_page_on_card_equals_host_path(nccl_mesh):
     assert nms.launches.count == n_chunks
     assert want["box"], "an empty page proves nothing"
     assert got == want
+
+
+# ---------------------------------------------------------------------
+# tools/: each tool's route on the card at a small size
+# ---------------------------------------------------------------------
+
+def test_fused_attn_check_on_card(cuda):
+    """The kernel check holds the attention kernel to the einsum within
+    1e-4; the decode check's fused route launches it and decodes the
+    einsum route's texts."""
+    from findtextcenternet_tpu_torch.tools import fused_attn_check
+    k = fused_attn_check.kernel_check(2, 64, 4, 64, device=cuda)
+    assert k["within_1e-4"] and k["nan_pattern_match"]
+    d = fused_attn_check.decode_check(batch=2, device=cuda, tiny=True)
+    assert d["fused_kernel_launches"] > 0
+    assert d["texts_agree"]
+
+
+def test_decode_bench_on_card(cuda):
+    from findtextcenternet_tpu_torch.tools import decode_bench
+    res = decode_bench.run(decode_bench.TINY_DIMS, batch=2, rounds=2,
+                           iters=1, device=cuda, moduli=(7, 11, 13))
+    for name in ("f32", "bf16"):
+        assert res[f"{name}_fused_attn_launches"] > 0
+        assert res[f"{name}_paths_agree"]
+        assert res[f"{name}_hoisted_ms"] > 0
+    assert res["f32_fused_attn_codes_agree"]
+    # the kernel's flops are added from its shapes: both routes count alike
+    assert res["f32_fused_attn_tflop"] == res["f32_hoisted_tflop"]
+    assert res["topk3_impls_agree"]
+
+
+def test_train_bench_on_card(cuda, capsys):
+    from findtextcenternet_tpu_torch.tools import train_bench
+    assert train_bench.main(["--transformer", "--tiny", "--batch", "4",
+                             "--iters", "2", "--attn-impl", "fused"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["attention_fwd_launches_per_step"] > 0
+    assert out["attention_bwd_launches_per_step"] > 0
+    assert np.isfinite(out["loss"]) and "nvidia_smi" in out
+    assert train_bench.main(["--model-size", "tiny", "--image", "64",
+                             "--batch", "4", "--accum", "2", "--iters", "1",
+                             "--head-conv-dim", "16"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert np.isfinite(out["keymap_loss"]) and out["peak_share"] > 0
+
+
+def test_trained_margin_check_on_card(cuda, tmp_path):
+    """A few training steps through the attention kernels (forward and
+    backward) and the decode of both routes on the trained weights."""
+    from findtextcenternet_tpu_torch.tools import trained_margin_check
+    out = trained_margin_check.run(trained_margin_check.parse_args([
+        "--embed", "32", "--seq", "16", "--batch", "8", "--steps", "3",
+        "--epochs", "1", "--windows", "4", "--hira-only", "--ckpt-dir",
+        str(tmp_path / "ck"), "--device", "cuda"]))
+    assert out["train_attention_bwd_launches"] > 0
+    assert out["trained"]["fused_kernel_launches"] > 0
+    assert out["random_init"]["fused_kernel_launches"] > 0
+
+
+def test_annotate_on_card_equals_cpu(cuda, tmp_path):
+    """process_image1 / process_image4 with the tiny model on the card (the
+    NMS kernel) against the same weights on the CPU: the same boxes within
+    1e-3 (the detector computes in bf16 on both, with other conv sums) and
+    the same box list. On a page of one tile (the same crop in both
+    tilings) the vectors at the detected centers equal the f16 features
+    run_detector returns there."""
+    from PIL import Image
+
+    from findtextcenternet_tpu_torch.infer.run_ocr import build_pipeline
+    from findtextcenternet_tpu_torch.tools import annotate
+    cpu = build_pipeline("tiny", random_weights=True, device="cpu")
+    gpu = build_pipeline("tiny", random_weights=True, device=cuda)
+    rng = np.random.default_rng(0)
+    img = rng.integers(150, 256, (256, 448, 3)).astype(np.uint8)
+    for i in range(5):
+        img[90:130, 30 + 80 * i:70 + 80 * i] = rng.integers(0, 60,
+                                                            (40, 40, 3))
+    out = {}
+    for name, pipe in (("cpu", cpu), ("gpu", gpu)):
+        d = tmp_path / name
+        d.mkdir()
+        path = str(d / "page.png")
+        Image.fromarray(img).save(path)
+        nms.launches.reset()
+        first = annotate.process_image1(pipe, path)
+        launched = nms.launches.count
+        annotate.process_image4(pipe, path)
+        with open(path + ".json", encoding="utf-8") as f:
+            out[name] = (first, json.load(f), launched)
+    assert out["gpu"][2] > 0 and out["cpu"][2] == 0
+    want, got = out["cpu"][0]["textbox"], out["gpu"][0]["textbox"]
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        for k in ("cx", "cy", "w", "h"):
+            assert abs(g[k] - w[k]) <= 1e-3 * max(1.0, abs(w[k])), k
+    assert out["gpu"][1]["boxlist"] == out["cpu"][1]["boxlist"]
+    one_tile = np.ascontiguousarray(img[:, :256])
+    page = gpu.run_detector(one_tile)
+    # a center at x or y 0 is owned by no tile of the reference's tiling
+    inside = (page.locations[:, 1] > 0) & (page.locations[:, 2] > 0)
+    assert inside.any()
+    feats = annotate._features_at_centers(
+        gpu, one_tile, page.locations[inside, 1:3].astype(np.float32))
+    np.testing.assert_allclose(
+        feats.astype(np.float16).astype(np.float32),
+        np.asarray(page.features, np.float32)[inside], atol=1e-3,
+        rtol=1e-3)
+
+
+def test_tf_import_round_trip_on_card(cuda):
+    from findtextcenternet_tpu_torch.io import tf_import
+    from findtextcenternet_tpu_torch.models.detector import (
+        CenterNetDetection)
+    det = CenterNetDetection("tiny", feature_dim=8, head_conv_dim=8).to(cuda)
+    rng = np.random.default_rng(0)
+    npz = {k: rng.normal(size=v.shape).astype(np.float32)
+           for k, v in tf_import.export_backbone_npz(det, "tiny").items()}
+    tf_import.load_backbone_npz(det, npz, "tiny")
+    assert det.backbone.features[0][0].weight.is_cuda
+    back = tf_import.export_backbone_npz(det, "tiny")
+    for k, v in npz.items():
+        np.testing.assert_array_equal(back[k], v)

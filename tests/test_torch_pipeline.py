@@ -277,6 +277,58 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "BAD []" in r.stdout
 
 
+_FORBIDDEN = ("jax", "jaxlib", "flax", "findtextcenternet_tpu")
+
+
+def _forbidden_imports(path):
+    """(line, module) of every import of a forbidden package in the file,
+    at any depth (inside functions too), including ``__import__`` and
+    ``importlib.import_module`` of a literal name."""
+    import ast
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), path)
+    found = []
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "id", getattr(node.func, "attr", None))
+              in ("__import__", "import_module")):
+            names = [node.args[0].value]
+        found += [(node.lineno, n) for n in names
+                  if n.split(".")[0] in _FORBIDDEN]
+    return found
+
+
+def test_port_and_chip_smoke_source_imports_no_jax(tmp_path):
+    """The import test above sees only what importing runs; this reads
+    every source of the port and chip_smoke.py for an import of JAX, flax
+    or the JAX package anywhere, function bodies included."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(
+            REPO, "findtextcenternet_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 50
+    bad = {os.path.relpath(p, REPO): f for p in files
+           if (f := _forbidden_imports(p))}
+    assert not bad, bad
+    # the scan finds each form inside a function body
+    probe = tmp_path / "probe.py"
+    probe.write_text(
+        "def f():\n    import jax.numpy\n"
+        "    from findtextcenternet_tpu.ops import attention\n"
+        "    from . import jax\n"
+        "    __import__('flax.linen')\n"
+        "    importlib.import_module('jaxlib')\n")
+    assert [m for _, m in _forbidden_imports(str(probe))] == [
+        "jax.numpy", "findtextcenternet_tpu.ops", "flax.linen", "jaxlib"]
+
+
 def test_run_ocr_cli_tiny_on_cpu(tmp_path, capsys):
     from PIL import Image
 
