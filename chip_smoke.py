@@ -206,15 +206,51 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (``tools_launches`` beside ``kernels``: no row of ``kernels`` is the
    shape of a tool's launches).
 
+12. The fused detector heads (``CenterNetDetection(fused=True)``, run
+   after phase 11): the xl detector with weights from torch.Generator(0)
+   and random running statistics in every head BatchNorm, and the fused
+   model from ``fuse_head_variables`` of the same state (unfused again, on
+   the host and from the card's module, bit-equal to it). Eval on 8 768²
+   tiles (the serving chunk): the per-head and the fused model in bf16
+   and the fused model in f32 against the f32 per-head model (TF32 off),
+   max |diff| over max(1, max |ref|) of the heatmap and the features (the
+   fused f32 model within ``FUSED_F32_BOUND``, the fused bf16 one within
+   ``FUSED_BF16_RATIO`` times the per-head bf16 error plus that bound);
+   ``extract_peaks`` on both bf16 heatmaps (every pixel may be a peak, the
+   NMS kernel once a heatmap, counts set to 0 just before): a peak of one
+   missing from the other must be explained by the keymaps' largest
+   difference (a logit that close to the threshold's, or a neighbour that
+   close above it); ms a forward of each bf16 layout, the median of
+   ``FUSED_TIMED`` CUDA-event readings in turns, beside the card's name
+   and power limit. Train mode in f32 (TF32 off) on the f32 model's taps
+   of 2 tiles: the fused heads against the per-head heads (outputs, tap
+   gradients, every parameter gradient unfused, the updated running
+   statistics), then once more with ``remat=True``, all within
+   ``FUSED_F32_BOUND``. Its NMS launches stand beside ``kernels`` as
+   ``fused_heads_launches``, never on a shape row.
+13. Host I/O: a shard of 8 900x1200 pages written by ShardWriter, served
+   by an ``http.server`` on 127.0.0.1 that honours ``Range`` and drops
+   its first connection half-way; read through ``open_shard_stream``
+   (the route, the downloader's build seconds, the requests' ranges: the
+   downloader must resume at the half) its bytes must equal the file's
+   and its samples ``iter_tar_samples`` of the path; a ``DetectorLoader``
+   batch from the URL must equal the batch from the path (seed 0); then
+   ``fetch_aozora`` on a served Shift-JIS page and ``collect_corpus``
+   against a served JSON endpoint give the expected text and files. The
+   phase has a time limit of its own (``HOST_IO_SECONDS``) and ends with
+   no downloader running.
+
 The second-to-last line is the kernels JSON (one row per kernel and shape,
 with the launches of the path it serves), the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import http.server
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -265,6 +301,17 @@ HARVEST_PAGES = 8
 DECODE_BENCH_BATCH, DECODE_BENCH_ROUNDS = 16, 8
 MARGIN_ARGV = ["--hira-only", "--seq", "16", "--lr", "1e-2", "--epochs",
                "8", "--steps", "200"]
+# the fused heads phase: forwards timed per layout; the bound of the f32
+# fused model against the f32 per-head one (eval and train mode, relative
+# to max(1, |ref|)); the factor the fused bf16 error may exceed the
+# per-head bf16 error by; the peaks' threshold
+FUSED_TIMED = 10
+FUSED_TOP_KERNELS = 8
+FUSED_F32_BOUND = 1e-3
+FUSED_BF16_RATIO = 3.0
+PEAK_THRESHOLD = 0.4
+# the host I/O phase's time limit (a downloader retries for ever)
+HOST_IO_SECONDS = 120
 
 
 def log(*args):
@@ -308,29 +355,24 @@ def synth_page_and_boxes(rng, char: int = CHAR, line_gap: float = 1.7):
     return img, np.asarray(locs, np.float32), lines, seps
 
 
-def profiled_kernels(fn, calls: int, match=None):
-    """(device µs, launches) of the CUDA kernels ``calls`` calls of ``fn``
-    launch (all of them, or those whose name contains ``match``), from a
-    profile that starts after a warm-up cycle of the profiler (one call).
-    On the card machine the profiler has dropped the first launches of a
-    window (a cold profile the first 1-3 of 50, a warm one the first of
-    50 and 41 of a decode's 5,438): the calls start 10 ms into the
-    window behind four spin kernels, four more follow them, the window
-    closes 10 ms after, and the spin kernels are not counted."""
+def profile_events(fn, calls: int) -> list:
+    """The device events (kernels, copies and fills, by name: ``key``,
+    ``count``, ``self_device_time_total`` in µs) of ``calls`` calls of
+    ``fn``, from a profile that starts after a warm-up cycle of the
+    profiler (one call). On the card machine the profiler has dropped the
+    first launches of a window (a cold profile the first 1-3 of 50, a warm
+    one the first of 50 and 41 of a decode's 5,438): the calls start 10 ms
+    into the window behind four spin kernels, four more follow them, the
+    window closes 10 ms after; the spin kernels are left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     out = {}
 
     def ready(prof):
-        total, seen = 0.0, 0
-        for ev in prof.key_averages():
-            # kernels, copies and fills; runtime calls take no device time
-            if ev.self_device_time_total > 0 and (
-                    match in ev.key if match is not None
-                    else "spin_kernel" not in ev.key):
-                total += ev.self_device_time_total
-                seen += ev.count
-        out["r"] = (total, seen)
+        # runtime calls take no device time
+        out["r"] = [ev for ev in prof.key_averages()
+                    if ev.self_device_time_total > 0
+                    and "spin_kernel" not in ev.key]
 
     def pad():
         for _ in range(4):
@@ -351,6 +393,16 @@ def profiled_kernels(fn, calls: int, match=None):
         time.sleep(0.01)
         prof.step()
     return out["r"]
+
+
+def profiled_kernels(fn, calls: int, match=None):
+    """(device µs, launches) of the CUDA kernels ``calls`` calls of ``fn``
+    launch (all of them, or those whose name contains ``match``), from
+    :func:`profile_events`."""
+    evs = [ev for ev in profile_events(fn, calls)
+           if match is None or match in ev.key]
+    return (sum(ev.self_device_time_total for ev in evs),
+            sum(ev.count for ev in evs))
 
 
 def device_ms(fn, iters: int, match=None, per_call=None,
@@ -3256,6 +3308,415 @@ def phase_tools(smi: str) -> dict:
     return per_tool
 
 
+def median_ms_turns(fns: dict, n: int = FUSED_TIMED) -> dict:
+    """Median ms of one call of each function of ``fns`` over ``n`` turns
+    on CUDA events (``tools/timing.time_ms``, one call a reading after two
+    warm-up calls), the order reversed every other turn."""
+    from findtextcenternet_tpu_torch.tools.timing import time_ms
+
+    names = list(fns)
+    for name in names:
+        time_ms(fns[name], "cuda", 1, warmup=2)
+    times = {name: [] for name in names}
+    for turn in range(n):
+        for name in (names if turn % 2 == 0 else names[::-1]):
+            times[name].append(time_ms(fns[name], "cuda", 1, warmup=0))
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max(1, max |want|), in f32."""
+    want = want.float()
+    return float((got.float() - want).abs().max()) / max(
+        1.0, float(want.abs().max()))
+
+
+def peak_disagreements(ka, kb, peaks_a, peaks_b, err: float) -> dict:
+    """Peaks of one keymap missing from the other that ``err`` (the largest
+    |ka - kb|) does not explain. A pixel is a peak when its sigmoid reaches
+    the threshold and no 3x3 neighbour is larger; where the maps differ by
+    at most ``err``, a peak of one map may be missing from the other only
+    if there its logit lies within ``err`` of the threshold's, or a
+    neighbour within ``2 err`` above it (a near tie). Keymaps (B,H,W) f32,
+    peak masks (B,H,W) bool."""
+    import torch
+    import torch.nn.functional as F
+
+    thr = float(np.log(PEAK_THRESHOLD / (1 - PEAK_THRESHOLD)))
+
+    def margins(k):
+        p = F.unfold(F.pad(k[:, None], (1, 1, 1, 1), value=-float("inf")),
+                     3)
+        p[:, 4] = -float("inf")
+        return p.max(1).values.reshape(k.shape) - k
+
+    out = {}
+    for name, k, only in (("a_only", kb, peaks_a & ~peaks_b),
+                          ("b_only", ka, peaks_b & ~peaks_a)):
+        explained = ((k - thr).abs() <= err) | (margins(k) <= 2 * err)
+        out[name] = int(only.sum())
+        out[name + "_unexplained"] = int((only & ~explained).sum())
+    return out
+
+
+def phase_fused_heads(smi: str, device: str = "cuda",
+                      model_size: str = "xl", batch: int = 8,
+                      hw: int = 768, train_batch: int = 2) -> dict:
+    """The fused detector heads (phase 12 of the module doc); returns the
+    NMS launches of the peaks of both bf16 heatmaps (counts set to 0 just
+    before)."""
+    import torch
+
+    from findtextcenternet_tpu_torch.models.detector import (
+        CenterNetDetection, fuse_head_variables, unfuse_head_variables)
+    from findtextcenternet_tpu_torch.models.init import init_flax_defaults_
+    from findtextcenternet_tpu_torch.ops import nms
+    from findtextcenternet_tpu_torch.ops.peaks import extract_peaks
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(0)
+    per_head = init_flax_defaults_(CenterNetDetection(model_size), gen)
+    with torch.no_grad():
+        for k, v in per_head.state_dict().items():
+            if k.startswith("backbone."):
+                continue
+            if k.endswith("running_mean"):
+                v.normal_(0.0, 0.5, generator=gen)
+            elif k.endswith("running_var"):
+                v.uniform_(0.5, 2.0, generator=gen)
+    state = per_head.state_dict()
+    del per_head
+    fused_state = fuse_head_variables(state)
+    back = unfuse_head_variables(fused_state)
+    exact = set(back) == set(state) and all(
+        torch.equal(back[k], v) for k, v in state.items())
+    log(f"fused heads: {model_size} detector, {len(state)} per-head "
+        f"tensors -> {len(fused_state)} fused; unfused again bit-equal to "
+        f"the per-head state: {exact}")
+    if not exact:
+        raise AssertionError("unfuse(fuse(state)) differs from the state")
+
+    def model(fused, dtype, sd, remat=False):
+        m = CenterNetDetection(model_size, fused=fused, remat=remat)
+        m.load_state_dict(sd)
+        return m.to(device, dtype)
+
+    ref = model(False, torch.float32, state).eval()
+    fused32 = model(True, torch.float32, fused_state).eval()
+    back = unfuse_head_variables({k: v.cpu()
+                                  for k, v in fused32.state_dict().items()})
+    if not all(torch.equal(back[k], v) for k, v in state.items()):
+        raise AssertionError("the card's fused model unfuses to other "
+                             "weights")
+    x = torch.rand((batch, hw, hw, 3), generator=torch.Generator(
+        device=device).manual_seed(0), device=device)
+    with torch.inference_mode():
+        want = ref(x)
+        got32 = fused32(x)
+    del fused32
+    ph16 = model(False, torch.bfloat16, state).eval()
+    fu16 = model(True, torch.bfloat16, fused_state).eval()
+    with torch.inference_mode():
+        outs = {"per_head_bf16": ph16(x), "fused_bf16": fu16(x),
+                "fused_f32": got32}
+    errs = {name: {"heatmap": _rel_err(o[0], want[0]),
+                   "features": _rel_err(o[1], want[1])}
+            for name, o in outs.items()}
+    log(f"fused heads: eval, {batch} x {hw}² tiles, errors against the "
+        f"f32 per-head model (TF32 off), max |diff| / max(1, max |ref|) "
+        f"(|ref| heatmap {float(want[0].abs().max()):.4g}, features "
+        f"{float(want[1].abs().max()):.4g}): {json.dumps(errs)} (bounds: "
+        f"fused f32 {FUSED_F32_BOUND:g}; fused bf16 within "
+        f"{FUSED_BF16_RATIO:g}x the per-head bf16 error + "
+        f"{FUSED_F32_BOUND:g})")
+    for out in ("heatmap", "features"):
+        if not (errs["fused_f32"][out] <= FUSED_F32_BOUND
+                and errs["fused_bf16"][out] <= FUSED_BF16_RATIO
+                * errs["per_head_bf16"][out] + FUSED_F32_BOUND):
+            raise AssertionError(f"fused heads: {out} error over its bound")
+
+    # the NMS kernel on both bf16 heatmaps (every pixel may be a peak)
+    h4 = hw // 4
+    nms.launches.reset()
+    with torch.inference_mode():
+        peaks = {name: extract_peaks(outs[name][0], outs[name][1],
+                                     max_peaks=h4 * h4,
+                                     threshold=PEAK_THRESHOLD)
+                 for name in ("per_head_bf16", "fused_bf16")}
+    launches = {"nms_sigmoid_masked": nms.launches.count,
+                "shapes": f"nms_sigmoid_masked ({batch},{h4},{h4}) on the "
+                          f"per-head and the fused bf16 heatmaps"}
+
+    def peak_map(p):
+        m = torch.zeros((batch, h4, h4), dtype=torch.bool, device=device)
+        b = torch.arange(batch, device=device)[:, None].expand_as(p["x"])
+        v = p["valid"]
+        m[b[v], p["y"][v].long(), p["x"][v].long()] = True
+        return m
+
+    ka = outs["fused_bf16"][0][..., 0].float()
+    kb = outs["per_head_bf16"][0][..., 0].float()
+    err = float((ka - kb).abs().max())
+    pa, pb = peak_map(peaks["fused_bf16"]), peak_map(peaks["per_head_bf16"])
+    dis = peak_disagreements(ka, kb, pa, pb, err)
+    log(f"fused heads: peaks (threshold {PEAK_THRESHOLD}) fused bf16 "
+        f"{int(pa.sum())}, per-head bf16 {int(pb.sum())}, both "
+        f"{int((pa & pb).sum())}; keymap max |diff| {err:.4g}; "
+        f"disagreements {json.dumps(dis)} (unexplained must be 0); NMS "
+        f"launches {launches['nms_sigmoid_masked']}")
+    if dis["a_only_unexplained"] or dis["b_only_unexplained"] or (
+            device == "cuda" and launches["nms_sigmoid_masked"] != 2):
+        raise AssertionError("fused heads: peak sets disagree, or the NMS "
+                             "kernel did not run once a heatmap")
+
+    def forward(m):
+        def fn():
+            with torch.inference_mode():
+                return m(x)
+        return fn
+
+    fwd = {"per_head": forward(ph16), "fused": forward(fu16)}
+    ms = median_ms_turns(fwd) if device == "cuda" else {}
+    log(f"fused heads: bf16 forward, {batch} x {hw}², median of "
+        f"{FUSED_TIMED} on CUDA events in turns: {json.dumps(ms)} ms "
+        f"({smi})")
+    if device == "cuda":
+        for name, fn in fwd.items():
+            evs = sorted(profile_events(fn, 1),
+                         key=lambda e: -e.self_device_time_total)
+            top = [f"{e.key[:48]} x{e.count} "
+                   f"{e.self_device_time_total / 1e3:.2f} ms"
+                   for e in evs[:FUSED_TOP_KERNELS]]
+            log(f"fused heads: {name} bf16 forward, one profiled: device "
+                f"{sum(e.self_device_time_total for e in evs) / 1e3:.2f} "
+                f"ms in {sum(e.count for e in evs)} launches; top: "
+                + "; ".join(top))
+    del ph16, fu16, fwd, outs, want, got32, x
+
+    # train mode, f32 (TF32 off), on the f32 model's taps of 2 tiles
+    xt = torch.rand((train_batch, hw, hw, 3), generator=torch.Generator(
+        device=device).manual_seed(1), device=device)
+    with torch.no_grad():
+        taps = [t.detach() for t in ref.backbone(
+            xt.permute(0, 3, 1, 2) * 2.0 - 1.0)]
+    del ref
+    g = torch.Generator(device=device).manual_seed(2)
+    c_heat = torch.randn((train_batch, 9, hw // 4, hw // 4), generator=g,
+                         device=device)
+    c_feat = torch.randn((train_batch, 100, hw // 4, hw // 4), generator=g,
+                         device=device)
+
+    def train(fused, sd, remat=False):
+        m = model(fused, torch.float32, sd, remat).train()
+        tp = [t.clone().requires_grad_() for t in taps]
+        heat, feat = m.run_heads(tp)
+        ((heat * c_heat).sum() + (feat * c_feat).sum()).backward()
+        grads = {k: p.grad for k, p in m.named_parameters()
+                 if not k.startswith("backbone.")}
+        st = {k: v for k, v in m.state_dict().items()
+              if not k.startswith("backbone.")}
+        if fused:       # the parameters' keys now hold their gradients
+            grads = unfuse_head_variables({**st, **grads})
+            st = unfuse_head_variables(st)
+        return heat.detach(), feat.detach(), [t.grad for t in tp], grads, st
+
+    t0 = time.perf_counter()
+    want = train(False, state)
+    res = {}
+    for name, remat in (("fused", False), ("fused_remat", True)):
+        got = train(True, fused_state, remat)
+        res[name] = {
+            "heatmap": _rel_err(got[0], want[0]),
+            "features": _rel_err(got[1], want[1]),
+            "tap_grads": max(_rel_err(a, b) for a, b in zip(got[2],
+                                                            want[2])),
+            "param_grads": max(_rel_err(got[3][k], v)
+                               for k, v in want[3].items()),
+            "running_stats": max(_rel_err(got[4][k], v)
+                                 for k, v in want[4].items()
+                                 if "running" in k)}
+        del got
+    log(f"fused heads: train mode f32 (TF32 off), {train_batch} x {hw}² "
+        f"taps, fused vs per-head heads (outputs, tap gradients, every "
+        f"parameter gradient unfused, updated running statistics; max "
+        f"|diff| / max(1, max |ref|) per tensor, the worst): "
+        f"{json.dumps(res)} in {time.perf_counter() - t0:.1f} s (bound "
+        f"{FUSED_F32_BOUND:g})")
+    if max(v for r in res.values() for v in r.values()) > FUSED_F32_BOUND:
+        raise AssertionError("fused heads: train mode over its bound")
+    log(f"fused heads phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+class _RangeHandler(http.server.BaseHTTPRequestHandler):
+    """Serves ``server.routes`` (path -> bytes) with ``Range: bytes=N-``;
+    for a path in ``server.drop_once`` the first response stops half-way
+    and the connection closes."""
+
+    def do_GET(self):
+        srv = self.server
+        srv.requests.append((self.path, self.headers.get("Range")))
+        body = srv.routes[self.path]
+        rng = self.headers.get("Range")
+        start = int(rng.split("=")[1].split("-")[0]) if rng else 0
+        part = body[start:]
+        self.send_response(206 if rng else 200)
+        if rng:
+            self.send_header("Content-Range",
+                             f"bytes {start}-{len(body) - 1}/{len(body)}")
+        self.send_header("Content-Length", str(len(part)))
+        self.end_headers()
+        if self.path in srv.drop_once:
+            srv.drop_once.discard(self.path)
+            self.wfile.write(part[:len(part) // 2])
+            self.wfile.flush()
+            self.connection.shutdown(socket.SHUT_WR)
+            return
+        self.wfile.write(part)
+
+    def log_message(self, *args):
+        pass
+
+
+def phase_host_io():
+    """Shard streaming and the corpus collectors against a server on
+    127.0.0.1 (phase 13 of the module doc)."""
+    import signal
+    import threading
+
+    from findtextcenternet_tpu_torch.data import shards
+    from findtextcenternet_tpu_torch.data.loader import DetectorLoader
+    from findtextcenternet_tpu_torch.factory import corpus
+    from findtextcenternet_tpu_torch.infer import native
+
+    t_phase = time.perf_counter()
+    root = os.path.join(CKPT_ROOT, "host_io")
+    rng = np.random.default_rng(6)
+    h, w, n = 1200, 900, 300
+    with shards.ShardWriter(os.path.join(root, "s%03d.tar"), 8) as wr:
+        for i in range(8):
+            img = np.full((h, w), 235, np.uint8)
+            cx, cy = rng.uniform(30, w - 30, n), rng.uniform(30, h - 30, n)
+            size = rng.uniform(14, 40, n)
+            for x, y, s in zip(cx.astype(int), cy.astype(int),
+                               size.astype(int)):
+                img[y - s // 2:y + s // 2, x - s // 2:x + s // 2] = 30
+            wr.write({"__key__": f"p{i:04d}", "image.npy": img,
+                      "textline.npy": np.zeros((h // 2, w // 2), np.uint8),
+                      "sepline.npy": np.zeros((h // 2, w // 2), np.uint8),
+                      "position.npy": np.stack([cx, cy, size, size],
+                                               1).astype(np.float32),
+                      "code_list.npy": np.stack([
+                          rng.integers(0x3041, 0x9FFF, n),
+                          rng.integers(0, 16, n)], 1).astype(np.int32)})
+        path = wr.paths[0]
+    with open(path, "rb") as f:
+        body = f.read()
+    page = ('<div class="main_text">吾輩は<ruby><rb>猫</rb><rt>ねこ</rt>'
+            '</ruby>である。<br />名前はまだ無い。</div>')
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), _RangeHandler)
+    srv.daemon_threads = True
+    srv.requests, srv.drop_once = [], {"/s.tar"}
+    srv.routes = {"/s.tar": body, "/card.html": page.encode("shift_jis"),
+                  "/ja/random": json.dumps({"title": "猫", "extract":
+                                            "猫は動物である。"}).encode()}
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    route = shards.shard_route(url + "/s.tar")
+    if route != "downloader":
+        srv.drop_once.clear()           # urllib does not resume
+    saved_api = corpus.WIKI_RANDOM_API
+
+    def expire(signum, frame):
+        raise TimeoutError("host I/O phase over its time limit")
+
+    old = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(HOST_IO_SECONDS)
+    try:
+        t0 = time.perf_counter()
+        with shards.open_shard_stream(url + "/s.tar") as stream:
+            got = stream.read()
+        read_s = time.perf_counter() - t0
+        resumed = [r for p, r in srv.requests if p == "/s.tar"]
+        with shards.open_shard_stream(url + "/s.tar") as stream:
+            streamed = list(shards.iter_tar_samples(stream))
+        local = list(shards.iter_tar_samples(path))
+        same = len(streamed) == len(local) == 8 and all(
+            a.keys() == b.keys() and all(np.array_equal(a[k], b[k])
+                                         for k in a)
+            for a, b in zip(streamed, local))
+        log(f"host io: shard of {len(body)} bytes streamed by route "
+            f"{route} (downloader build "
+            f"{native.build_seconds.get('downloader', 0.0):.2f} s) in "
+            f"{read_s:.2f} s, requests' ranges {resumed}: bytes equal "
+            f"{got == body}; samples equal to the file's {same}")
+        if got != body or not same or (route == "downloader" and resumed
+                                        != [None, f"bytes={len(body) // 2}-"]):
+            raise AssertionError("host io: the streamed shard differs")
+
+        def batch(shard):
+            loader = DetectorLoader([shard], 4, num_workers=1, seed=0,
+                                    repeat=False, out_hw=(768, 768))
+            it = iter(loader)
+            try:
+                return next(it)
+            finally:
+                it.close()
+
+        a, b = batch(url + "/s.tar"), batch(path)
+        equal = a.keys() == b.keys() and all(np.array_equal(a[k], b[k])
+                                             for k in a)
+        log(f"host io: DetectorLoader batch of 4 at 768² from the URL == "
+            f"from the path (seed 0): {equal}")
+        if not equal:
+            raise AssertionError("host io: the URL shard's batch differs")
+
+        text = corpus.fetch_aozora(url + "/card.html", timeout=30)
+        corpus.WIKI_RANDOM_API = url + "/{lang}/random"
+        n_files = corpus.collect_corpus(os.path.join(root, "corpus"),
+                                        ("ja",), 2)
+        with open(os.path.join(root, "corpus", "wiki_ja_0001.txt"),
+                  encoding="utf-8") as f:
+            wiki = f.read()
+        log(f"host io: fetch_aozora (Shift-JIS) {text!r}; collect_corpus "
+            f"{n_files} files, the second {wiki!r}")
+        if text != "吾輩は￹猫￺ねこ￻である。\n名前はまだ無い。" or \
+                n_files != 2 or wiki != "猫\n猫は動物である。":
+            raise AssertionError("host io: the corpus collectors' text")
+        alive = downloaders_alive()
+        if alive:
+            raise AssertionError(f"host io: downloaders still running: "
+                                 f"{alive}")
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+        corpus.WIKI_RANDOM_API = saved_api
+        for pid in downloaders_alive():
+            os.kill(pid, signal.SIGKILL)
+        srv.shutdown()
+        srv.server_close()
+    log(f"host io phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def downloaders_alive() -> list:
+    """The pids of running processes of the port's downloader program."""
+    from findtextcenternet_tpu_torch.infer import native
+
+    exe = native.build("downloader").encode()
+    pids = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                if f.read().split(b"\0")[0] == exe:
+                    pids.append(int(pid))
+        except OSError:
+            continue
+    return pids
+
+
 def phase_reference():
     """Small input: GPU (kernels) against CPU (plain versions)."""
     import torch
@@ -3372,6 +3833,10 @@ def main() -> int:
         del batches
         phase_artifacts(*phase_weights_loop(det_ckpt, tf_ckpt))
         tools_launches = phase_tools(smi)
+        torch.cuda.empty_cache()
+        fused_launches = phase_fused_heads(smi)
+        torch.cuda.empty_cache()
+        phase_host_io()
     finally:
         shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     phase_reference()
@@ -3394,7 +3859,8 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels_line,
-                    "tools_launches": tools_launches}))
+                    "tools_launches": tools_launches,
+                    "fused_heads_launches": fused_launches}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -18,7 +18,7 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 
 from .augment import process_sample
-from .shards import iter_tar_samples
+from .shards import iter_tar_samples, open_shard_stream
 
 _STOP = "__stop__"
 _FIELDS = {"image", "textline", "sepline", "position", "code_list"}
@@ -40,18 +40,19 @@ def _worker(shard_queue, out_queue, seed: int, shuffle_buf: int, out_hw,
         if shard == _STOP:
             break
         try:
-            for raw in iter_tar_samples(shard):
-                s = _rename_reference_keys(raw)
-                if not _FIELDS <= set(s):
-                    continue
-                s["position"] = np.asarray(s["position"], np.float32)
-                s["code_list"] = np.asarray(s["code_list"], np.int32)
-                buf.append(s)
-                if len(buf) >= shuffle_buf:
-                    i = int(rng.integers(len(buf)))
-                    buf[i], buf[-1] = buf[-1], buf[i]
-                    out_queue.put(process_sample(buf.pop(), rng,
-                                                 backend=backend, **kw))
+            with open_shard_stream(shard) as stream:
+                for raw in iter_tar_samples(stream):
+                    s = _rename_reference_keys(raw)
+                    if not _FIELDS <= set(s):
+                        continue
+                    s["position"] = np.asarray(s["position"], np.float32)
+                    s["code_list"] = np.asarray(s["code_list"], np.int32)
+                    buf.append(s)
+                    if len(buf) >= shuffle_buf:
+                        i = int(rng.integers(len(buf)))
+                        buf[i], buf[-1] = buf[-1], buf[i]
+                        out_queue.put(process_sample(buf.pop(), rng,
+                                                     backend=backend, **kw))
         except Exception as e:  # keep the pipeline alive on bad shards
             out_queue.put({"__error__": repr(e), "__shard__": str(shard)})
     # the tail flush must not be able to kill the worker before _STOP is

@@ -6,12 +6,15 @@ tar of ``{key}.image.png / .textline.png / .sepline.png / .position.npy /
 shards (``make_traindata/make_traindata1.py``), so shards are
 interchangeable between the port, the JAX package and the upstream
 loader. PNG members need Pillow, imported only when one is read or
-written; ``.npy`` members need nothing more. Shards are local files.
+written; ``.npy`` members need nothing more. A shard is a local file or an
+http(s) URL (:func:`open_shard_stream`).
 """
 from __future__ import annotations
 
 import io
 import os
+import shutil
+import subprocess
 import tarfile
 from typing import Dict, Iterator, List, Optional
 
@@ -130,3 +133,55 @@ def _encode_member(name: str, value) -> bytes:
     if ext == "txt" or isinstance(value, str):
         return str(value).encode("utf-8")
     raise TypeError(f"cannot encode member {name}: {type(value)}")
+
+
+def shard_route(url_or_path: str) -> str:
+    """How :func:`open_shard_stream` reads a shard: ``"file"`` for a local
+    path; for an http(s) URL ``"downloader"`` (the native streamer, which
+    hands each transfer to ``curl``) where ``curl`` is on the PATH, else
+    ``"urllib"``, as the JAX package falls back to urllib where its
+    downloader is missing."""
+    if not url_or_path.startswith(("http://", "https://")):
+        return "file"
+    return "downloader" if shutil.which("curl") else "urllib"
+
+
+class DownloadStream:
+    """The standard output of the native ``downloader`` streaming ``url``
+    (built from ``native/downloader/main.cpp`` at first use): it resumes
+    an interrupted transfer from the bytes already delivered, and retries
+    a failed one for ever, a 404 included. :meth:`close` ends the
+    process."""
+
+    def __init__(self, url: str):
+        from ..infer import native
+        self.proc = subprocess.Popen([native.build("downloader"), url],
+                                     stdout=subprocess.PIPE)
+
+    def read(self, n: int = -1) -> bytes:
+        return self.proc.stdout.read(n)
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.stdout.close()
+        self.proc.wait()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        self.close()
+
+
+def open_shard_stream(url_or_path: str):
+    """A binary stream of a shard (the port's ``open_shard_stream``), by
+    :func:`shard_route`: the file, a :class:`DownloadStream`, or urllib's
+    response. Close it (or use it in a ``with``) to end a download."""
+    route = shard_route(url_or_path)
+    if route == "downloader":
+        return DownloadStream(url_or_path)
+    if route == "urllib":
+        import urllib.request
+        return urllib.request.urlopen(url_or_path)
+    return open(url_or_path, "rb")

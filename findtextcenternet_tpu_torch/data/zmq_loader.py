@@ -34,7 +34,7 @@ def _reader(worker_id: int, num_workers: int, shards: List[str],
             process_fn: Callable):
     import zmq
 
-    from .shards import iter_tar_samples
+    from .shards import iter_tar_samples, open_shard_stream
 
     ctx = zmq.Context()
     push = ctx.socket(zmq.PUSH)
@@ -48,23 +48,26 @@ def _reader(worker_id: int, num_workers: int, shards: List[str],
     consumed = 0  # global consumed count published by the consumer
     for shard in shards:
         try:
-            for raw in iter_tar_samples(shard):
-                sample = {k.split(".")[0]: v for k, v in raw.items()}
-                if not _FIELDS <= set(sample):
-                    continue
-                sample["position"] = np.asarray(sample["position"],
-                                                np.float32)
-                sample["code_list"] = np.asarray(sample["code_list"],
-                                                 np.int32)
-                push.send(pickle.dumps(process_fn(sample, rng), protocol=4))
-                sent += 1
-                # backpressure: pause while this reader's sent count
-                # exceeds its fair share of the global count by more than 2
-                while sent > consumed / num_workers + 2:
-                    try:
-                        consumed = int(sub.recv(zmq.NOBLOCK))
-                    except zmq.Again:
-                        time.sleep(0.005)
+            with open_shard_stream(shard) as stream:
+                for raw in iter_tar_samples(stream):
+                    sample = {k.split(".")[0]: v for k, v in raw.items()}
+                    if not _FIELDS <= set(sample):
+                        continue
+                    sample["position"] = np.asarray(sample["position"],
+                                                    np.float32)
+                    sample["code_list"] = np.asarray(sample["code_list"],
+                                                     np.int32)
+                    push.send(pickle.dumps(process_fn(sample, rng),
+                                           protocol=4))
+                    sent += 1
+                    # backpressure: pause while this reader's sent count
+                    # exceeds its fair share of the global count by more
+                    # than 2
+                    while sent > consumed / num_workers + 2:
+                        try:
+                            consumed = int(sub.recv(zmq.NOBLOCK))
+                        except zmq.Again:
+                            time.sleep(0.005)
         except Exception as e:
             print(f"zmq reader {worker_id}: shard error {e}", flush=True)
     push.send(_EOF)

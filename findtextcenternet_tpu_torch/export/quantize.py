@@ -43,14 +43,22 @@ DEFAULT_EXCLUDE = (
 State = Dict[str, torch.Tensor]
 
 
+# the fused heads' tensors keep JAX's layouts, output channels last
+_JAX_LAYOUT = re.compile(r"(^|.*/)heads/")
+
+
 def quantize_params(state: State, exclude: Iterable[str] = DEFAULT_EXCLUDE
                     ) -> Tuple[State, State]:
     """Quantize the conv and dense weights of a port state dict to int8.
 
     Returns ``(quantized, scales)``: quantized entries are int8 with a
-    per-output-channel f32 scale (axis 0 of the port's layouts, the last
-    axis of JAX's) in ``scales`` under the same key; excluded and other
-    entries pass through."""
+    per-output-channel f32 scale in ``scales`` under the same key: over
+    axis 0 of the port's layouts (the last axis of JAX's), over the last
+    axis of the fused heads' kernels, which keep JAX's layout (an
+    ``up{i}_tap_kernel`` / ``up{i}_carry_kernel`` (3,3,c,G,D) takes
+    (1,1,1,1,D) scales, each shared by the G heads, as the JAX package's
+    ``quantize_params`` gives). Excluded and other entries pass
+    through."""
     rx = [re.compile(p) for p in exclude]
     paths = flax_paths(state)
     qstate, scales = {}, {}
@@ -61,7 +69,9 @@ def quantize_params(state: State, exclude: Iterable[str] = DEFAULT_EXCLUDE
             qstate[key] = t
             continue
         w = t.detach().to(torch.float32)
-        amax = w.abs().amax(dim=tuple(range(1, w.dim())), keepdim=True)
+        out_axis = w.dim() - 1 if _JAX_LAYOUT.match(path) else 0
+        amax = w.abs().amax(dim=tuple(a for a in range(w.dim())
+                                      if a != out_axis), keepdim=True)
         scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
         qstate[key] = torch.clamp(torch.round(w / scale), -127,
                                   127).to(torch.int8)

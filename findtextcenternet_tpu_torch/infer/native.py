@@ -1,9 +1,11 @@
 """Build the native host libraries (line engine, host ops, the training
-augmenter, the glyph rasterizer of the page factory) and the line
-engine's wire-protocol program ``linedetect`` at first use.
+augmenter, the glyph rasterizer of the page factory) and the programs
+``linedetect`` (the line engine's wire protocol) and ``downloader`` (the
+shard streamer) at first use.
 
 The sources are the repository's ``native/lineengine/src``,
-``native/hostops/src``, ``native/augment`` and ``native/rasterizer/src``;
+``native/hostops/src``, ``native/augment``, ``native/rasterizer/src`` and
+``native/downloader``;
 the shared libraries go to the port's own
 ``build/native/`` (listed in ``.gitignore``), named by a hash of the
 sources, the compiler's version and the C library (:mod:`..shlib`). Each
@@ -43,11 +45,13 @@ LIBRARIES: Dict[str, Tuple[str, Tuple[str, ...], Tuple[str, ...]]] = {
     "rasterizer": ("rasterizer/src", ("ttf.cpp", "capi.cpp"), ("ttf.h",)),
 }
 
-# program -> (source dir, sources, headers); reads the wire protocol of
-# ``native/lineengine/src/main.cpp`` on stdin
+# program -> (source dir, sources, headers): ``linedetect`` reads the wire
+# protocol of ``native/lineengine/src/main.cpp`` on stdin; ``downloader``
+# streams an http(s) URL to stdout through ``curl``, resuming by byte range
 PROGRAMS: Dict[str, Tuple[str, Tuple[str, ...], Tuple[str, ...]]] = {
     "linedetect": ("lineengine/src", _ENGINE + ("main.cpp",),
                    _ENGINE_HEADERS),
+    "downloader": ("downloader", ("main.cpp",), ()),
 }
 
 _lock = threading.Lock()

@@ -14,7 +14,10 @@ Conversions: conv HWIO -> OIHW (depthwise ``(kh,kw,1,C)`` -> ``(C,1,kh,kw)``
 by the same permutation); Dense ``(in,out)`` -> Linear ``(out,in)``;
 BatchNorm ``scale/bias/mean/var`` -> ``weight/bias/running_mean/
 running_var`` (+ ``num_batches_tracked`` = 0); LayerNorm ``scale/bias`` ->
-``weight/bias``; Embed ``embedding`` -> ``weight``.
+``weight/bias``; Embed ``embedding`` -> ``weight``. A detector with the
+fused heads (``heads``, ``FusedLeafmaps``) keeps its leaves' JAX names and
+shapes under ``heads.`` (``heads.in_bn0_scale``, ``heads.up1_tap_kernel``,
+...), its merged BatchNorms as BatchNorms (``heads.up0_bn.weight``, ...).
 
 The same key schedule carries any tree shaped like a model's parameters
 (``batch_stats`` left out: the result is keyed like the optimizer's
@@ -35,7 +38,7 @@ import torch
 from ..const import MODULO_LIST
 from ..losses import CoVState
 from ..models.detector import HEADS
-from ..models.efficientnet import EFFNET_V2_CONFIGS
+from ..models.efficientnet import EFFNET_V2_CONFIGS, TAP_CHANNELS
 from ..models.transformer import TransformerDims
 
 
@@ -85,6 +88,10 @@ class _Sink:
     def raw(self, key, path):
         self._put(key, self._get(self.params, path))
 
+    def stat(self, key, path):
+        if self.stats is not None:
+            self._put(key, self._get(self.stats, path))
+
 
 def _backbone(s: _Sink, model_size: str):
     cfgs = EFFNET_V2_CONFIGS[model_size]
@@ -120,8 +127,28 @@ def _leafmap(s: _Sink, key: str, fname: str):
     s.conv(f"{key}.top_conv.0", (fname, "top_conv"), bias=True)
 
 
-def _detector(s: _Sink, model_size: str):
+def _fused_heads(s: _Sink, levels: int):
+    f = ("heads",)
+    for level in range(levels):
+        for leaf in ("scale", "bias"):
+            s.raw(f"heads.in_bn{level}_{leaf}", f + (f"in_bn{level}_{leaf}",))
+        for leaf in ("mean", "var"):
+            s.stat(f"heads.in_bn{level}_{leaf}", f + (f"in_bn{level}_{leaf}",))
+    for i in range(levels):
+        s.raw(f"heads.up{i}_tap_kernel", f + (f"up{i}_tap_kernel",))
+        if i:
+            s.raw(f"heads.up{i}_carry_kernel", f + (f"up{i}_carry_kernel",))
+        s.bn(f"heads.up{i}_bn", f + (f"up{i}_bn",))
+    for leaf in ("top_scalar_kernel", "top_scalar_bias", "top_feature_kernel",
+                 "top_feature_bias"):
+        s.raw(f"heads.{leaf}", f + (leaf,))
+
+
+def _detector(s: _Sink, model_size: str, fused: bool = False):
     _backbone(s, model_size)
+    if fused:
+        _fused_heads(s, len(TAP_CHANNELS[model_size]))
+        return
     for key, fname, _ in HEADS:
         _leafmap(s, key, fname)
     _leafmap(s, "feature", "feature")
@@ -130,9 +157,10 @@ def _detector(s: _Sink, model_size: str):
 def detector_state_from_flax(variables: dict, model_size: str = "xl"
                              ) -> Dict[str, torch.Tensor]:
     """State dict of the port's ``CenterNetDetection`` from the variables
-    of the JAX ``CenterNetDetection`` (per-head Leafmap layout)."""
+    of the JAX ``CenterNetDetection``, in the layout they hold: per-head
+    Leafmaps, or the fused heads (``heads``) for ``fused=True``."""
     s = _Sink(variables["params"], variables["batch_stats"])
-    _detector(s, model_size)
+    _detector(s, model_size, "heads" in variables["params"])
     return s.sd
 
 
@@ -149,7 +177,7 @@ def text_detector_state_from_flax(variables: dict, model_size: str = "xl"
     for prefix in ("detector", "decoder"):
         s = _Sink(params[prefix], None if stats is None else stats[prefix])
         if prefix == "detector":
-            _detector(s, model_size)
+            _detector(s, model_size, "heads" in params[prefix])
         else:
             _simple_decoder(s)
         sd.update({f"{prefix}.{k}": v for k, v in s.sd.items()})
@@ -260,6 +288,9 @@ class _Paths:
     def raw(self, key, path):
         self._rec(key, path)
 
+    def stat(self, key, path):
+        self._rec(key, path)
+
 
 def _blocks(keys, prefix: str) -> int:
     """How many ``{prefix}.{i}.`` blocks the keys hold."""
@@ -272,7 +303,8 @@ def _blocks(keys, prefix: str) -> int:
 def flax_paths(keys) -> Dict[str, str]:
     """The '/'-joined flax path (as in the JAX package's variable trees) of
     every key of a port state dict: a ``Transformer``, a
-    ``CenterNetDetection`` (of any model size), a ``SimpleDecoder`` or a
+    ``CenterNetDetection`` (of any model size, in either head layout: a
+    fused leaf under ``heads/``), a ``SimpleDecoder`` or a
     ``TextDetectorModel`` (``detector.*`` / ``decoder.*``). Raises when a
     key is not in the schedule."""
     keys = list(keys)
@@ -296,9 +328,10 @@ def flax_paths(keys) -> Dict[str, str]:
         paths = s.paths
     else:
         paths = {}
+        fused = any(k.startswith("heads.") for k in keys)
         for size in EFFNET_V2_CONFIGS:
             s = _Paths()
-            _detector(s, size)
+            _detector(s, size, fused)
             if set(s.paths) == kset:
                 paths = s.paths
                 break

@@ -10,7 +10,10 @@ checkpoint holds the ``TextDetectorModel`` (``detector.*``, ``decoder.*``
 and the BatchNorm statistics), a ``train3`` checkpoint the ``Transformer``.
 So the export is a copy into the upstream file layout, ``{'epoch',
 'model_state_dict'[, 'config']}``, which :mod:`.torch_import` and the JAX
-package's loader both read.
+package's loader both read. A detector with the fused heads is unfused
+first (:func:`export_detector_sd`), as the JAX package's
+``export_detector_sd`` does: the upstream files know the per-head layout
+only.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import Dict, Optional
 import torch
 
 from ..config import Config, config_from_json
+from ..models.detector import unfuse_head_variables
 from ..train import checkpoint as ckpt
 
 
@@ -36,6 +40,19 @@ def save_torch_checkpoint(path: str, sd: Dict[str, torch.Tensor],
         out["config"] = config
     torch.save(out, path)
     return path
+
+
+def export_detector_sd(state: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+    """The reference-keyed state of ``model.pt`` from a port
+    ``TextDetectorModel``'s state dict (``detector.*``, ``decoder.*``) or
+    a bare ``CenterNetDetection``'s (its keys take the ``detector.``
+    prefix), in either head layout: the fused heads are unfused."""
+    if not any(k.startswith(("detector.", "decoder.")) for k in state):
+        state = {f"detector.{k}": v for k, v in state.items()}
+    if any(k.startswith("detector.heads.") for k in state):
+        state = unfuse_head_variables(state)
+    return state
 
 
 def _latest(ckpt_dir: str) -> str:
@@ -72,7 +89,7 @@ def export_torch_checkpoints(out_dir: str, detector_ckpt: Optional[str] = None,
         if not any(k.startswith("detector.") for k in sd):
             raise ValueError(f"{detector_ckpt}: not a detector checkpoint")
         out["model.pt"] = save_torch_checkpoint(
-            os.path.join(out_dir, "model.pt"), sd)
+            os.path.join(out_dir, "model.pt"), export_detector_sd(sd))
     if transformer_ckpt:
         sd = ckpt.load_eval_params(_latest(transformer_ckpt))
         if not any(k.startswith("encoder.") for k in sd):

@@ -13,6 +13,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..models.detector import fuse_head_variables
+
 ORIG_MOD = "_orig_mod."     # the prefix ``torch.compile`` adds to keys
 
 
@@ -31,7 +33,7 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     return out
 
 
-def split_detector_state(sd: Dict[str, torch.Tensor]
+def split_detector_state(sd: Dict[str, torch.Tensor], fused: bool = False
                          ) -> Tuple[Dict[str, torch.Tensor],
                                     Dict[str, torch.Tensor]]:
     """Split a ``model.pt`` state dict into the bare ``CenterNetDetection``
@@ -39,7 +41,10 @@ def split_detector_state(sd: Dict[str, torch.Tensor]
     takes it) and the ``SimpleDecoder`` state (the ``decoder.*`` keys,
     prefix removed; empty when the file has none). Keys holding ``minval``
     are dropped, as the JAX importer leaves them unread; any other key
-    raises."""
+    raises. ``fused=True`` gives the detector state in the fused-heads
+    layout of ``CenterNetDetection(fused=True)`` (the JAX package's
+    ``import_detector(fused=True)``); a head key outside the per-head
+    schedule then raises too."""
     det, dec = {}, {}
     for k, v in sd.items():
         if "minval" in k:
@@ -51,4 +56,6 @@ def split_detector_state(sd: Dict[str, torch.Tensor]
             dec[rest] = v
         else:
             raise ValueError(f"unexpected key in a detector checkpoint: {k}")
+    if fused:
+        det = fuse_head_variables(det)
     return det, dec

@@ -59,6 +59,12 @@ def _contexts():
     return contextlib.nullcontext(), _recomputing()
 
 
+def recomputing() -> bool:
+    """True while :func:`remat` recomputes a block in the backward pass:
+    running statistics are then left alone (the forward moved them)."""
+    return getattr(_recompute, "on", False)
+
+
 def remat(fn, *args):
     """``fn(*args)``, its activations recomputed in the backward pass. The
     blocks hold no randomness of their own (drop-path noise is drawn
@@ -68,10 +74,15 @@ def remat(fn, *args):
                                  context_fn=_contexts)
 
 
-class _FlaxRunningVar:
+class SyncStats:
+    """A module whose train-mode batch statistics span ``sync_group``
+    (:func:`set_sync_group`; None: this rank's batch alone)."""
+    sync_group = None
+
+
+class _FlaxRunningVar(SyncStats):
     """Train-mode forward with flax's running-variance update; the global
     batch's statistics under ``sync_group``."""
-    sync_group = None
 
     def forward(self, x):
         if not self.training:
@@ -84,7 +95,7 @@ class _FlaxRunningVar:
         rm, rv = self.running_mean.clone(), self.running_var.clone()
         y = F.batch_norm(x, rm, rv, self.weight, self.bias, True,
                          self.momentum, self.eps)
-        if getattr(_recompute, "on", False):
+        if recomputing():
             return y
         with torch.no_grad():
             # torch moved rv towards var·n/(n−1); flax moves it towards var
@@ -97,7 +108,7 @@ class _FlaxRunningVar:
     def _sync_forward(self, x):
         y, mean, var = _SyncBatchNorm.apply(x, self.weight, self.bias,
                                             self.eps, self.sync_group)
-        if not getattr(_recompute, "on", False):
+        if not recomputing():
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
@@ -159,10 +170,11 @@ class _SyncBatchNorm(torch.autograd.Function):
 
 
 def set_sync_group(model: nn.Module, group) -> None:
-    """Take every BatchNorm of ``model``'s train-mode statistics over
-    ``group`` (a mesh's data group; None: this rank's batch alone)."""
+    """Take every BatchNorm of ``model`` (and the fused heads' shared tap
+    moments) train-mode statistics over ``group`` (a mesh's data group;
+    None: this rank's batch alone)."""
     for m in model.modules():
-        if isinstance(m, _FlaxRunningVar):
+        if isinstance(m, SyncStats):
             m.sync_group = group
 
 

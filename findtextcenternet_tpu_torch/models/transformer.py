@@ -467,6 +467,14 @@ def topk_descending(p: torch.Tensor, k: int):
     return torch.stack(vals, dim=-1), torch.stack(idxs, dim=-1)
 
 
+def crt_combine_topk(logits: Sequence[torch.Tensor], topk: int = 3
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`crt_combine_topk_probs` of the per-modulus logits' softmax
+    (in f32): the best CRT-decoded (code, prob) per position."""
+    return crt_combine_topk_probs(
+        [torch.softmax(lg.float(), dim=-1) for lg in logits], topk)
+
+
 def crt_combine_topk_probs(probs: Sequence[torch.Tensor], topk: int = 3
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Product-space CRT combine over per-modulus top-k candidates: all k^3

@@ -23,7 +23,8 @@ from findtextcenternet_tpu_torch.io.from_jax import detector_state_from_flax
 from findtextcenternet_tpu_torch.models.detector import CenterNetDetection
 from findtextcenternet_tpu_torch.ops import peaks
 from findtextcenternet_tpu_torch.ops.peaks import extract_peaks
-from findtextcenternet_tpu_torch.ops.resize import upsample2x
+from findtextcenternet_tpu_torch.ops.resize import (
+    resize_bilinear_align_corners as tresize, upsample2x)
 
 FDIM = 8
 
@@ -62,6 +63,17 @@ def test_upsample2x_matches_align_corners_matrices():
         np.float32)
     want = resize_bilinear_align_corners(jnp.asarray(x), 14, 10)
     got = upsample2x(torch.from_numpy(x).permute(0, 3, 1, 2))
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
+                               np.asarray(want), atol=1e-6)
+
+
+@pytest.mark.parametrize("out_hw", [(14, 10), (3, 2), (1, 1), (1, 9),
+                                    (20, 1), (9, 13)])
+def test_resize_bilinear_align_corners_matches_jax(out_hw):
+    x = np.random.default_rng(1).standard_normal((2, 7, 5, 3)).astype(
+        np.float32)
+    want = resize_bilinear_align_corners(jnp.asarray(x), *out_hw)
+    got = tresize(torch.from_numpy(x).permute(0, 3, 1, 2), *out_hw)
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
                                np.asarray(want), atol=1e-6)
 

@@ -111,6 +111,23 @@ def test_topk_descending_breaks_ties_to_the_lower_index():
     np.testing.assert_array_equal(ti.numpy(), np.asarray(wi))
 
 
+@pytest.mark.parametrize("topk", [1, 3])
+def test_crt_combine_topk_matches_jax(topk):
+    """Logits -> softmax -> the CRT product search: codes equal, the
+    geometric-mean probabilities within f32 rounding; some positions favour
+    residues that decode past MAX_CODEPOINT (scored 0)."""
+    rng = np.random.default_rng(6 + topk)
+    logits = [(rng.standard_normal((2, 7, m)) * 3).astype(np.float32)
+              for m in MODULO_LIST]
+    logits[0][0, 0, -1] = logits[1][0, 0, -1] = logits[2][0, 0, -1] = 30.0
+    jc, jp = jt.crt_combine_topk([jnp.asarray(x) for x in logits], topk)
+    tc, tp = tt.crt_combine_topk([torch.from_numpy(x) for x in logits],
+                                 topk)
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=1e-5,
+                               atol=1e-7)
+
+
 def test_unknown_attention_impl_raises():
     with pytest.raises(ValueError):
         tt.Transformer(TDIMS, attn_impl="flash")
