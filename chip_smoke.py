@@ -104,7 +104,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``--whole-batch``, the batch of 32 in one micro-batch, for its step
    time and peak memory (or the peak before it fails, where it does not
    fit).
-7. The loop from training back to training data, at full width: the
+7. Stage 2 (``train2``) at full width through its CLI, after phase 6:
+   ``--init-from`` phase 6's checkpoint, streaming from the loader's two
+   shards (weight1 0.5) and reading a painted fixdata directory (PNG
+   pages, ``.lines.png`` / ``.seps.png``, box JSONs; no fonts) at
+   weight2 2.0, the xl detector at 768², batch ``STAGE2_BATCH``, 2 epochs
+   of 2 iterations, RAdam at lr 1e-4 decaying 0.98 every 2 steps, bf16.
+   Prints ms per step, peak memory, the learning rate at each epoch and
+   the phase's seconds beside its budget (``STAGE2_BUDGET_S``); checks
+   that every loss is finite, that the first step started from stage 1's
+   eval weights and BN statistics bit for bit, that every trainable
+   tensor moved, and that the run's checkpoint exports to ``model.pt``
+   equal to its eval weights. Then one tiny stage-2 iteration through the
+   CLI on the card against the CPU (f32, TF32 off; every tensor of the
+   final state within atol / rtol 1e-4).
+8. The loop from training back to training data, at full width: the
    train3 phase's state and the detector-training phase's xl state saved
    as port checkpoints (bytes and write seconds), exported by
    ``io/torch_export.py`` to ``model.pt`` / ``model3.pt`` (bytes, write
@@ -123,24 +137,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    fonts, else the synthetic page of ``synth_page_and_boxes`` with its
    boxes as ground truth. The bank is packed by ``save_feature_bank``,
    loaded by ``FeatureBank.load`` and drawn from for a train3 batch.
-8. Deployment artifacts at full width, from phase 7's ``model.pt`` /
+9. Deployment artifacts at full width, from phase 8's ``model.pt`` /
    ``model3.pt``: the ONNX artifacts through the port's ``onnx_models``
    CLI (f32; ``--int8`` calibrated through ``--calib-npy`` on the serving
    page's 12 tiles; a ``--fp16`` set), bytes and seconds of each; the
    ``torch.export`` programs through ``export_models`` (bytes, seconds, the
-   self-test's error). The serving page, under phase 7's detections hook,
+   self-test's error). The serving page, under phase 8's detections hook,
    through ``run_ocr.build_pipeline(onnx_dir=)``,
    ``build_pipeline(coreml_dir=)`` and ``OCRPipeline.from_exported``, each
    against a live pipeline on the same files with an f32 detector: one
    8-tile chunk's heatmap and features and the encoder output within
    1e-3 x max(1, |ref|), the decoder probabilities of the page's first
    decode batch within 1e-5, the output dict equal, the NMS kernel twice
-   a page; ms/page (median of 3) with its ``run_detector`` and decode
+   a page; ms/page (median of 2) with its ``run_detector`` and decode
    times, readback bytes, peak memory. The fp16
    detector graph on one tile on the card against the evaluator on the
    CPU (1e-3 x max(1, |ref|), the peak channel left out), the int8 graph
    node by node (QuantizeLinear integers equal), with the CPU seconds.
-9. The mesh (``parallel/``) under NCCL, run after phase 6: a process
+10. The mesh (``parallel/``) under NCCL, run after phase 7: a process
    group of world 1 through ``parallel.init_distributed`` (NCCL refuses
    two ranks on one device) and ``make_mesh``. Its groups of one rank are
    active, so every collective of the seam runs under NCCL on card
@@ -170,12 +184,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    against f64 (the sync one as accurate as cuDNN's). The kernels line carries each kernel's launches on the
    mesh paths (``launches_mesh``; the rows of ``decode_len_buckets``
    have none: the mesh page runs without buckets).
-10. Reference check on a small input: the tiny detector and a tiny
+11. Reference check on a small input: the tiny detector and a tiny
    Transformer on the GPU against the same weights on the CPU, the tiny
    model's default page path against its host path on the GPU, bit for
    bit, on a page that yields detections, and a tiny bucketed decode on
    the card, on the host stream and on a FeatureStream, against the CPU.
-11. The tools (``findtextcenternet_tpu_torch/tools/``), run after phase 8,
+12. The tools (``findtextcenternet_tpu_torch/tools/``), run after phase 9,
    counts set to 0 just before: ``fused_attn_check``'s kernel check at
    (16,400,12,64) f32 with a tail mask (every element within 1e-4 +
    1e-4 x |einsum|) and its decode check (detector "s", the full
@@ -206,8 +220,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (``tools_launches`` beside ``kernels``: no row of ``kernels`` is the
    shape of a tool's launches).
 
-12. The fused detector heads (``CenterNetDetection(fused=True)``, run
-   after phase 11): the xl detector with weights from torch.Generator(0)
+13. The fused detector heads (``CenterNetDetection(fused=True)``, run
+   after phase 12): the xl detector with weights from torch.Generator(0)
    and random running statistics in every head BatchNorm, and the fused
    model from ``fuse_head_variables`` of the same state (unfused again, on
    the host and from the card's module, bit-equal to it). Eval on 8 768²
@@ -228,7 +242,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    statistics), then once more with ``remat=True``, all within
    ``FUSED_F32_BOUND``. Its NMS launches stand beside ``kernels`` as
    ``fused_heads_launches``, never on a shape row.
-13. Host I/O: a shard of 8 900x1200 pages written by ShardWriter, served
+14. Host I/O: a shard of 8 900x1200 pages written by ShardWriter, served
    by an ``http.server`` on 127.0.0.1 that honours ``Range`` and drops
    its first connection half-way; read through ``open_shard_stream``
    (the route, the downloader's build seconds, the requests' ranges: the
@@ -240,12 +254,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    phase has a time limit of its own (``HOST_IO_SECONDS``) and ends with
    no downloader running.
 
-The second-to-last line is the kernels JSON (one row per kernel and shape,
-with the launches of the path it serves), the last line
+Before them a line gives each phase's seconds (``phase seconds``), then
+the total. The second-to-last line is the kernels JSON (one row per
+kernel and shape, with the launches of the path it serves), the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import http.server
 import json
 import os
@@ -288,6 +304,14 @@ BUCKET_WINDOW_GLYPHS = [8, 12, 20, 30, 45, 58] * 6 + [70, 100, 120] * 4 \
 # the batch-32 step
 DET_WARMUP, DET_STEPS, DET_PROFILED = 2, 4, 2
 DET_ACCUM = 4
+# stage 2 at full width: batch, epochs and iterations an epoch (a
+# streamed and a fixdata step each), fixdata pages, the phase's budget.
+# The batch is the detector-training phase's micro-batch, so the
+# convolutions' autotuned algorithms carry over (a batch of 4 autotuned
+# for 60 s in its first step)
+STAGE2_BATCH, STAGE2_EPOCHS, STAGE2_STEPS = 8, 2, 2
+STAGE2_FIX_PAGES = 4
+STAGE2_BUDGET_S = 60
 # the train -> export -> serve -> harvest phase: the training phases'
 # checkpoints, and the pages it harvests
 CKPT_ROOT = os.path.join(tempfile.gettempdir(), f"chip_smoke_{os.getpid()}")
@@ -1883,41 +1907,88 @@ def phase_detector_whole_batch(results, batches):
            f"{res['max_memory_allocated_before_failure'] / 2**30:.2f} GiB)"))
 
 
+def paint_page(rng, h: int, w: int, n: int, lines: bool = False) -> dict:
+    """A synthetic page of ``n`` dark square glyphs at random places, with
+    half-resolution line and separator maps (painted bands where
+    ``lines``, else empty), boxes and codes: a shard sample's fields."""
+    img = np.full((h, w), 235, np.uint8)
+    cx, cy = rng.uniform(30, w - 30, n), rng.uniform(30, h - 30, n)
+    size = rng.uniform(14, 40, n)
+    for x, y, s in zip(cx.astype(int), cy.astype(int), size.astype(int)):
+        img[y - s // 2:y + s // 2, x - s // 2:x + s // 2] = 30
+    textline = np.zeros((h // 2, w // 2), np.uint8)
+    sepline = np.zeros((h // 2, w // 2), np.uint8)
+    if lines:
+        for y in (cy[:8] / 2).astype(int):
+            textline[max(y - 4, 0):y + 4, w // 8:w * 3 // 8] = 255
+        sepline[h // 8:h * 3 // 8, w // 4:w // 4 + 2] = 255
+    return {"image": img, "textline": textline, "sepline": sepline,
+            "position": np.stack([cx, cy, size, size],
+                                 1).astype(np.float32),
+            "code_list": np.stack([rng.integers(0x3041, 0x9FFF, n),
+                                   rng.integers(0, 16, n)],
+                                  1).astype(np.int32)}
+
+
+def write_shards(pattern: str, rng, pages: int, per_shard: int, h: int,
+                 w: int, n: int) -> list:
+    """``pages`` painted pages in shards of ``per_shard`` written by the
+    port's ShardWriter (``.npy`` members, so no image codec is needed);
+    returns the shards' paths."""
+    from findtextcenternet_tpu_torch.data.shards import ShardWriter
+
+    with ShardWriter(pattern, per_shard) as wr:
+        for i in range(pages):
+            p = paint_page(rng, h, w, n)
+            wr.write({"__key__": f"p{i:04d}",
+                      **{f"{k}.npy": v for k, v in p.items()}})
+        return list(wr.paths)
+
+
+def write_fixdata(root: str, rng, pages: int, h: int, w: int,
+                  n: int) -> str:
+    """A stage-2 annotation directory: painted pages as PNG, each with its
+    ``.lines.png`` / ``.seps.png`` maps and a JSON of its boxes (codepoint,
+    flags ``p_code1``..``p_code8``), as the annotation tools write them.
+    Nothing is rendered from fonts."""
+    from PIL import Image
+
+    os.makedirs(root, exist_ok=True)
+    for i in range(pages):
+        p = paint_page(rng, h, w, n, lines=True)
+        img = os.path.join(root, f"page{i:03d}.png")
+        Image.fromarray(p["image"]).save(img)
+        Image.fromarray(p["textline"]).save(img + ".lines.png")
+        Image.fromarray(p["sepline"]).save(img + ".seps.png")
+        boxes = [dict(cx=float(x), cy=float(y), w=float(bw), h=float(bh),
+                      text=chr(int(c)),
+                      **{f"p_code{1 << b}": float(f >> b & 1)
+                         for b in range(4)})
+                 for (x, y, bw, bh), (c, f) in zip(p["position"],
+                                                   p["code_list"])]
+        with open(os.path.join(root, f"page{i:03d}.json"), "w",
+                  encoding="utf-8") as f:
+            json.dump({"textbox": boxes}, f)
+    return root
+
+
 def phase_detector_loader(state):
     """Two synthetic shards written by the port's ShardWriter (``.npy``
     members, so no image codec is needed), read by DetectorLoader's spawned
     workers (the native augmenter) into batches of 32 at 768²; the loader's
-    images/s on the host, and one train step on the card with its batch."""
+    images/s on the host, and one train step on the card with its batch.
+    Returns the shards' paths (stage 2 streams from them)."""
     import torch
 
     from findtextcenternet_tpu_torch.data.loader import DetectorLoader
-    from findtextcenternet_tpu_torch.data.shards import ShardWriter
     from findtextcenternet_tpu_torch.train.steps import detector_train_step
 
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "findtextcenternet_tpu_torch", "build",
-                        "smoke_shards")
-    shutil.rmtree(root, ignore_errors=True)
+    root = os.path.join(CKPT_ROOT, "shards")
     rng = np.random.default_rng(5)
     h, w, n = 1200, 900, 300
     t0 = time.perf_counter()
-    with ShardWriter(os.path.join(root, "train%03d.tar"), 32) as wr:
-        for i in range(64):
-            img = np.full((h, w), 235, np.uint8)
-            cx, cy = rng.uniform(30, w - 30, n), rng.uniform(30, h - 30, n)
-            size = rng.uniform(14, 40, n)
-            for x, y, s in zip(cx.astype(int), cy.astype(int),
-                               size.astype(int)):
-                img[y - s // 2:y + s // 2, x - s // 2:x + s // 2] = 30
-            wr.write({"__key__": f"p{i:04d}", "image.npy": img,
-                      "textline.npy": np.zeros((h // 2, w // 2), np.uint8),
-                      "sepline.npy": np.zeros((h // 2, w // 2), np.uint8),
-                      "position.npy": np.stack([cx, cy, size, size],
-                                               1).astype(np.float32),
-                      "code_list.npy": np.stack([
-                          rng.integers(0x3041, 0x9FFF, n),
-                          rng.integers(0, 16, n)], 1).astype(np.int32)})
-        paths = list(wr.paths)
+    paths = write_shards(os.path.join(root, "train%03d.tar"), rng, 64, 32,
+                         h, w, n)
     log(f"loader: {len(paths)} shards of 32 pages {w}x{h} ({n} boxes a "
         f"page) written in {time.perf_counter() - t0:.1f} s")
     workers = 4
@@ -1932,7 +2003,6 @@ def phase_detector_loader(state):
         t2 = time.perf_counter()
     finally:
         it.close()
-        shutil.rmtree(root, ignore_errors=True)
     shapes = {k: list(v.shape) for k, v in first.items()}
     if shapes != {"image": [32, 768, 768, 3], "labelmap": [32, 192, 192, 5],
                   "idmap": [32, 192, 192, 2]}:
@@ -1951,7 +2021,7 @@ def phase_detector_loader(state):
                images_per_s_both=64 / (t2 - t0), step_ms_with_upload=step_ms,
                loss=loss, keys_max=float(second["labelmap"][..., 0].max()))
     log(f"loader -> card: {json.dumps(res)}")
-    return res
+    return paths
 
 
 def save_state(state, cfg, name: str) -> str:
@@ -1966,6 +2036,248 @@ def save_state(state, cfg, name: str) -> str:
     log(f"{name}: port checkpoint of step {state.step} written, {nbytes} "
         f"bytes in {time.perf_counter() - t0:.2f} s")
     return os.path.dirname(path)
+
+
+@contextlib.contextmanager
+def stage2_probe(f32: bool = False):
+    """Yields a record of the ``train2`` run inside: the checkpoint
+    ``--init-from`` loaded and its weights (``loaded_from``, ``loaded``),
+    the steps timed one by one (the device synchronised at both ends)
+    with the learning rate each starts at, its loss and loss weight
+    (``steps``), the state the first step starts from on the host
+    (``first_sd``) and the run's final state (``state``). ``f32``: the
+    detector state computes in f32 (no autocast) instead of bf16."""
+    import torch
+
+    from findtextcenternet_tpu_torch.train import checkpoint as ckpt
+    from findtextcenternet_tpu_torch.train import steps as tsteps
+    from findtextcenternet_tpu_torch.train import train2
+
+    real_step, real_train = tsteps.detector_train_step, train2.train
+    real_build, real_load = train2.build_detector_state, \
+        ckpt.load_eval_params
+    record = {"steps": []}
+
+    def load(path):
+        record["loaded_from"], record["loaded"] = path, real_load(path)
+        return record["loaded"]
+
+    def step(state, batch, **kw):
+        dev = next(state.model.parameters()).device
+        if "first_sd" not in record:
+            record["first_sd"] = {k: v.detach().cpu().clone() for k, v in
+                                  state.model.state_dict().items()}
+        lr = float(state.optimizer.lr)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = real_step(state, batch, **kw)
+        loss = float(m["loss"])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        record["steps"].append(dict(
+            ms=(time.perf_counter() - t0) * 1e3, lr=lr, loss=loss,
+            loss_scale=kw["loss_scale"]))
+        return state, m
+
+    def train(*a, **kw):
+        record["state"] = real_train(*a, **kw)
+        return record["state"]
+
+    def build(*a, **kw):
+        model, state = real_build(*a, **kw)
+        if f32:
+            state.compute_dtype = torch.float32
+        return model, state
+
+    tsteps.detector_train_step, train2.train = step, train
+    train2.build_detector_state, ckpt.load_eval_params = build, load
+    try:
+        yield record
+    finally:
+        tsteps.detector_train_step, train2.train = real_step, real_train
+        train2.build_detector_state = real_build
+        ckpt.load_eval_params = real_load
+
+
+def stage2_tiny_reference(root: str, devices=("cuda", "cpu")):
+    """One stage-2 iteration (a streamed and a fixdata step) of the tiny
+    detector through ``train2.main`` on the card against the same
+    iteration on the CPU: the same stage-1 checkpoint, shards, fixdata and
+    loader seeds, f32 with TF32 off (drop path's masks come from the same
+    seeded CPU generator). Every tensor of the final state within atol /
+    rtol 1e-4. Returns the largest difference."""
+    import dataclasses
+
+    import torch
+
+    from findtextcenternet_tpu_torch.config import Config, to_json
+    from findtextcenternet_tpu_torch.train import train2
+    from findtextcenternet_tpu_torch.train.checkpoint import save_checkpoint
+    from findtextcenternet_tpu_torch.train.train1 import (
+        build_detector_state)
+
+    cfg = Config()
+    cfg = dataclasses.replace(
+        cfg,
+        detector=dataclasses.replace(
+            cfg.detector, model_size="tiny", feature_dim=8,
+            decoder_mid_dim=32, image_size=(64, 64),
+            fmask_topk_per_sample=8, head_conv_dim=16),
+        train=dataclasses.replace(cfg.train, batch_size=2,
+                                  learning_rate=1e-3, epochs=1,
+                                  log_every=1))
+    rng = np.random.default_rng(9)
+    shards = write_shards(os.path.join(root, "data", "t%03d.tar"), rng, 6,
+                          3, 256, 192, 12)
+    fix = write_fixdata(os.path.join(root, "fix"), rng, 2, 256, 192, 12)
+    _, state = build_detector_state(cfg, seed=0, device="cpu")
+    stage1 = os.path.join(root, "result1")
+    save_checkpoint(stage1, state, cfg)
+    finals = {}
+    for i, dev in enumerate(devices):
+        path = os.path.join(root, f"tiny{i}.json")
+        with open(path, "w") as f:
+            f.write(to_json(dataclasses.replace(cfg, train=dataclasses.replace(
+                cfg.train, checkpoint_dir=os.path.join(root, f"run{i}")))))
+        with stage2_probe(f32=True) as rec:
+            if train2.main([f"--fixdata={fix}", f"--shards={shards[0]}",
+                            f"--init-from={stage1}", f"--config={path}",
+                            f"--device={dev}", "--steps-per-epoch=1",
+                            "--num-workers=1", "--weight1=0.5",
+                            "--weight2=2.0"]) != 0:
+                raise AssertionError(f"tiny train2 on {dev} failed")
+        finals[i] = {k: v.detach().cpu() for k, v in
+                     rec["state"].model.state_dict().items()}
+        if rec["state"].step != 2:
+            raise AssertionError(f"tiny train2 on {dev}: step "
+                                 f"{rec['state'].step}")
+    worst = 0.0
+    for k, want in finals[1].items():
+        got = finals[0][k]
+        if not torch.allclose(got.double(), want.double(), rtol=1e-4,
+                              atol=1e-4):
+            raise AssertionError(f"tiny stage-2 iteration: {k} differs "
+                                 f"card/CPU")
+        worst = max(worst, float((got.double() - want.double()).abs()
+                                 .max()) if got.numel() else 0.0)
+    return worst
+
+
+def phase_stage2(det_ckpt: str, shards: list, smi: str) -> dict:
+    """Stage 2 at full width through the port's ``train2`` CLI on the card:
+    ``--init-from`` the detector-training phase's checkpoint, streaming
+    from the loader phase's shards (weight1 0.5) and a painted fixdata
+    directory (weight2 2.0), ``Config()``'s xl detector at 768², batch
+    ``STAGE2_BATCH``, ``STAGE2_EPOCHS`` epochs of ``STAGE2_STEPS``
+    iterations, RAdam at the CLI's lr 1e-4 decaying 0.98 an epoch's
+    steps, bf16 autocast. Prints ms per step, peak memory and the learning
+    rate at each epoch; checks that every loss is finite, that the first
+    step started from stage 1's eval weights and BN statistics (bit for
+    bit), that every trainable tensor moved, and that the run's
+    checkpoint exports to ``model.pt`` equal to its eval weights. Then the
+    tiny stage-2 iteration on the card against the CPU."""
+    import torch
+
+    from findtextcenternet_tpu_torch.io import torch_export, torch_import
+    from findtextcenternet_tpu_torch.train import checkpoint as ckpt
+    from findtextcenternet_tpu_torch.train import train2
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("stage 2 needs the card")
+    t_phase = time.perf_counter()
+    root = os.path.join(CKPT_ROOT, "stage2")
+    bench = torch.backends.cudnn.benchmark
+    try:
+        t0 = time.perf_counter()
+        fix = write_fixdata(os.path.join(root, "fix"),
+                            np.random.default_rng(6), STAGE2_FIX_PAGES,
+                            1200, 900, 300)
+        fix_s = time.perf_counter() - t0
+        out = os.path.join(root, "result2")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with stage2_probe() as rec:
+            if train2.main([f"--fixdata={fix}",
+                            f"--shards={os.path.dirname(shards[0])}/*.tar",
+                            f"--init-from={det_ckpt}",
+                            f"--checkpoint-dir={out}",
+                            f"--batch-size={STAGE2_BATCH}",
+                            f"--epochs={STAGE2_EPOCHS}",
+                            f"--steps-per-epoch={STAGE2_STEPS}",
+                            "--num-workers=2", "--weight1=0.5",
+                            "--weight2=2.0", "--device=cuda"]) != 0:
+                raise AssertionError("train2 CLI failed")
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        state, steps = rec["state"], rec["steps"]
+        losses = [s["loss"] for s in steps]
+        if len(steps) != 2 * STAGE2_EPOCHS * STAGE2_STEPS or \
+                state.step != len(steps):
+            raise AssertionError(f"stage 2 took {len(steps)} steps, "
+                                 f"state at {state.step}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"stage-2 loss not finite: {losses}")
+        first, started = rec["loaded"], rec["first_sd"]
+        if rec["loaded_from"] != ckpt.latest_checkpoint(det_ckpt):
+            raise AssertionError(f"--init-from loaded {rec['loaded_from']}")
+        if sorted(started) != sorted(first) or not all(
+                torch.equal(started[k], first[k]) for k in first):
+            raise AssertionError("stage 2 did not start from stage 1's "
+                                 "eval weights and BN statistics")
+        bn = [k for k in first if k.endswith(("running_mean",
+                                              "running_var"))]
+        params = state.optimizer.params
+        still = [k for k, p in params.items()
+                 if torch.equal(p.detach().cpu(), first[k])]
+        if still:
+            raise AssertionError(f"{len(still)} of {len(params)} trainable "
+                                 f"tensors did not move: {still[:8]}")
+        t0 = time.perf_counter()
+        path = torch_export.export_torch_checkpoints(
+            os.path.join(root, "export"), detector_ckpt=out)["model.pt"]
+        loaded = torch_import.load_torch_state_dict(path)
+        export_s = time.perf_counter() - t0
+        # the last checkpoint holds the final state's eval weights
+        want = {k: v.cpu() for k, v in state.eval_state_dict().items()}
+        if sorted(loaded) != sorted(want) or not all(
+                torch.equal(loaded[k], want[k]) for k in want):
+            raise AssertionError("stage-2 model.pt differs from the run's "
+                                 "eval weights")
+        lr_after = float(state.optimizer.lr)
+        moved = len(params)
+        del state, rec, started, first, loaded, want, params
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        tiny_err = stage2_tiny_reference(os.path.join(root, "tiny"))
+        tiny_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.benchmark = bench
+        shutil.rmtree(root, ignore_errors=True)
+    ms = [s["ms"] for s in steps]
+    per_epoch = 2 * STAGE2_STEPS
+    res = dict(
+        batch=STAGE2_BATCH, epochs=STAGE2_EPOCHS,
+        steps_per_epoch=STAGE2_STEPS, steps=len(steps),
+        ms_per_step=ms, ms_per_step_after_first_epoch=float(
+            np.median(ms[per_epoch:])),
+        images_per_s_after_first_epoch=STAGE2_BATCH / float(
+            np.median(ms[per_epoch:])) * 1e3,
+        lr_at_epoch=[steps[e * per_epoch]["lr"]
+                     for e in range(STAGE2_EPOCHS)],
+        lr_after=lr_after,
+        loss=losses, loss_scale=[s["loss_scale"] for s in steps],
+        max_memory_allocated=peak, bn_tensors_checked=len(bn),
+        trainable_tensors_moved=moved, fixdata_write_s=fix_s,
+        train2_cli_s=run_s, export_and_load_s=export_s,
+        tiny_card_vs_cpu_max_abs_err=tiny_err, tiny_s=tiny_s,
+        phase_s=time.perf_counter() - t_phase,
+        budget_s=STAGE2_BUDGET_S)
+    log(f"stage 2 ({smi}): {json.dumps(res)}")
+    if res["phase_s"] > STAGE2_BUDGET_S:
+        log(f"stage 2: {res['phase_s']:.1f} s, over its budget of "
+            f"{STAGE2_BUDGET_S} s")
+    return res
 
 
 class SynthHarvestPages:
@@ -2201,7 +2513,7 @@ def phase_weights_loop(det_ckpt: str, tf_ckpt: str):
 ART_MAP_RTOL = 1e-3        # heatmap / features / encoder: x max(1, |ref|)
 ART_PROB_ATOL = 1e-5       # decoder probabilities, absolute
 ART_CALIB_TILES = 12       # the serving page's tiles calibrate --int8
-ART_PAGES = 3              # timed pages a backend (the first warms up)
+ART_PAGES = 2              # timed pages a backend
 
 
 def _max_err(got, want) -> float:
@@ -2413,10 +2725,10 @@ def phase_artifacts(model_pt: str, model3_pt: str):
     captured = {}
 
     def serve(name, pipe):
-        """ART_PAGES timed pages under the realistic detections (the median
-        leaves out the first call's warm-up), with the medians of
-        ``run_detector`` and ``decode_windows`` (the device synchronised
-        around each) and the detector's own detections before the hook;
+        """ART_PAGES timed pages under the realistic detections, with the
+        medians of ``run_detector`` and ``decode_windows`` (the device
+        synchronised around each) and the detector's own detections
+        before the hook;
         returns the page and its numbers. No profiled page: the profiler's
         processing of a CoreML page's ~1e5 launches takes minutes."""
         pipe.detections_hook = lambda page_, image: realistic
@@ -3086,7 +3398,7 @@ def owned_tile_features(pipe, img, centers):
 
 
 def phase_tools(smi: str) -> dict:
-    """The port's tools on the card (phase 11 of the module doc); returns
+    """The port's tools on the card (phase 12 of the module doc); returns
     each tool's kernel launches (counts set to 0 just before each tool)
     beside the shapes its kernels ran at."""
     import torch
@@ -3362,7 +3674,7 @@ def peak_disagreements(ka, kb, peaks_a, peaks_b, err: float) -> dict:
 def phase_fused_heads(smi: str, device: str = "cuda",
                       model_size: str = "xl", batch: int = 8,
                       hw: int = 768, train_batch: int = 2) -> dict:
-    """The fused detector heads (phase 12 of the module doc); returns the
+    """The fused detector heads (phase 13 of the module doc); returns the
     NMS launches of the peaks of both bf16 heatmaps (counts set to 0 just
     before)."""
     import torch
@@ -3580,7 +3892,7 @@ class _RangeHandler(http.server.BaseHTTPRequestHandler):
 
 def phase_host_io():
     """Shard streaming and the corpus collectors against a server on
-    127.0.0.1 (phase 13 of the module doc)."""
+    127.0.0.1 (phase 14 of the module doc)."""
     import signal
     import threading
 
@@ -3812,34 +4124,51 @@ def bucketed_reference():
             raise AssertionError(f"{name}: {gathers} feature gathers")
 
 
+PHASE_S = {}
+
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``, its seconds kept in ``PHASE_S[name]``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_S[name] = round(time.perf_counter() - t0, 1)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     whole_batch = "--whole-batch" in sys.argv[1:]
-    smi = phase_environment()
+    smi = timed("environment", phase_environment)
     import torch
-    phase_build()
-    rows = phase_kernels()
-    results = phase_main_path()
+    timed("build", phase_build)
+    rows = timed("kernels", phase_kernels)
+    results = timed("main_path", phase_main_path)
     try:
-        train_launches, tf_ckpt = phase_training()
-        state, batches, det = phase_detector_training()
-        phase_detector_loader(state)
-        det_ckpt = save_state(state, None, "train1")
+        train_launches, tf_ckpt = timed("training", phase_training)
+        state, batches, det = timed("detector_training",
+                                    phase_detector_training)
+        shards = timed("detector_loader", phase_detector_loader, state)
+        det_ckpt = timed("save_train1", save_state, state, None, "train1")
         del state
         torch.cuda.empty_cache()
-        mesh_launches = phase_mesh(batches[:2])
+        timed("stage2", phase_stage2, det_ckpt, shards, smi)
+        torch.cuda.empty_cache()
+        mesh_launches = timed("mesh", phase_mesh, batches[:2])
         if whole_batch:
-            phase_detector_whole_batch(det, batches)
+            timed("detector_whole_batch", phase_detector_whole_batch, det,
+                  batches)
         del batches
-        phase_artifacts(*phase_weights_loop(det_ckpt, tf_ckpt))
-        tools_launches = phase_tools(smi)
+        loop = timed("weights_loop", phase_weights_loop, det_ckpt, tf_ckpt)
+        timed("artifacts", phase_artifacts, *loop)
+        tools_launches = timed("tools", phase_tools, smi)
         torch.cuda.empty_cache()
-        fused_launches = phase_fused_heads(smi)
+        fused_launches = timed("fused_heads", phase_fused_heads, smi)
         torch.cuda.empty_cache()
-        phase_host_io()
+        timed("host_io", phase_host_io)
     finally:
         shutil.rmtree(CKPT_ROOT, ignore_errors=True)
-    phase_reference()
+    timed("reference", phase_reference)
     launches = results["fused"]["launches"]
     kernels_line = []
     for key, counts in (("nms", launches), ("nms_b4", launches),
@@ -3856,6 +4185,7 @@ def main() -> int:
     extra = dict(rows["attention_bfloat16"])
     log(f"attention_fwd bf16 (not on the default f32 decode path): "
         f"{json.dumps(extra)}")
+    log(f"phase seconds: {json.dumps(PHASE_S)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels_line,

@@ -19,6 +19,10 @@ gradients), less the stem's input gradient; the Transformer's attention
 adds 4 (forward) + 10 (backward) flops per query-key pair and head column.
 Every line carries the device's name and ``nvidia-smi``'s power limit.
 
+``--no-remat-flops=F`` adds ``mfu_algorithmic``, F over the step time and
+the peak, as the JAX tool reports it: F is the no-remat step's flop count,
+so a ``--remat`` run's recomputation does not count as useful work.
+
 ``--dry`` counts the flops, parameters and optimizer-state bytes and takes
 no timed step. ``--aot``, ``--aot-mesh`` and ``--donate`` compile the JAX
 step for a TPU v5e topology without a device; CUDA has no such compile, so
@@ -304,6 +308,12 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--remat", action="store_true")
     ap.add_argument("--peak-tflops", type=float, default=H100_PEAK_TFLOPS)
+    ap.add_argument("--no-remat-flops", type=float, default=0.0,
+                    help="flops of the step without remat, for "
+                         "mfu_algorithmic (F / step s / peak): on the port, "
+                         "the no-remat step's flops as detector_step_flops "
+                         "counts them (step_tflop x 1e12 of a run without "
+                         "--remat)")
     ap.add_argument("--dry", action="store_true",
                     help="count flops, parameters and optimizer-state "
                          "bytes; no timed step")
@@ -318,6 +328,9 @@ def main(argv=None) -> int:
     dev = resolve_device(args.device)
     res = (bench_transformer if args.transformer else bench_detector)(
         args, dev)
+    if args.no_remat_flops and "step_ms" in res:
+        res["mfu_algorithmic"] = args.no_remat_flops / (
+            res["step_ms"] * 1e-3) / (args.peak_tflops * 1e12)
     print(json.dumps({**res, **device_info(dev)}))
     return 0
 

@@ -23,8 +23,9 @@ The gate is the direct differential: every held-out window decodes to the
 same text through both routes, on a model trained to ``char_accuracy >=
 0.8``. Margins are reported, not gated (their minimum shrinks with the
 window count however saturated the model is, and a threshold crossing only
-changes what is re-predicted). Prints one JSON line; exits 1 when the gate
-fails.
+changes what is re-predicted). Prints one JSON line, whose
+``gate_passes`` carries the gate's outcome; exits 0 either way, as the JAX
+tool does. ``--cpu`` (the JAX tool's flag) is ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -180,11 +181,19 @@ def parse_args(argv=None) -> argparse.Namespace:
                     "re-run just the decode gate on saved weights)")
     ap.add_argument("--device", default=None,
                     help="torch device (default the card)")
-    return ap.parse_args(argv)
+    ap.add_argument("--cpu", action="store_true",
+                    help="the JAX tool's flag: --device cpu")
+    args = ap.parse_args(argv)
+    if args.cpu:
+        if args.device not in (None, "cpu"):
+            ap.error(f"--cpu conflicts with --device {args.device}")
+        args.device = "cpu"
+    return args
 
 
 def main(argv=None) -> int:
-    return 0 if run(parse_args(argv))["gate_passes"] else 1
+    run(parse_args(argv))
+    return 0
 
 
 if __name__ == "__main__":

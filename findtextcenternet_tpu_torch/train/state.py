@@ -402,10 +402,16 @@ class RAdam(_Optimizer, _RAdamMoments):
         self.decay_rate = decay_rate
         self.count = 0
 
+    @property
+    def lr(self) -> np.float32:
+        """The learning rate of the next step."""
+        return exponential_decay_lr(self.learning_rate,
+                                    self.transition_steps, self.decay_rate,
+                                    self.count)
+
     @torch.no_grad()
     def step(self, grads: Tensors) -> None:
-        lr = exponential_decay_lr(self.learning_rate, self.transition_steps,
-                                  self.decay_rate, self.count)
+        lr = self.lr                # read before _radam advances count
         upd = self._radam(self._grads(grads))
         torch._foreach_mul_(upd, -float(lr))
         torch._foreach_add_(self._ys(), upd)

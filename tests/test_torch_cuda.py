@@ -571,6 +571,90 @@ def test_detector_train_step_on_card_equals_cpu(cuda):
     assert gpu.step == cpu.step == 3
 
 
+def _stage2_data(root):
+    """Tiny stage-2 inputs painted with numpy (no fonts): two shards of
+    ``.npy`` samples and a fixdata directory of PNG pages with their line
+    maps and box JSONs."""
+    from PIL import Image
+
+    from findtextcenternet_tpu_torch.data.shards import ShardWriter
+
+    rng = np.random.default_rng(9)
+
+    def page(h=256, w=192, n=12):
+        img = np.full((h, w), 230, np.uint8)
+        pos = np.stack([rng.uniform(20, w - 20, n), rng.uniform(20, h - 20, n),
+                        rng.uniform(8, 24, n), rng.uniform(8, 24, n)], 1)
+        for x, y, bw, bh in pos.astype(int):
+            img[y - bh // 2:y + bh // 2, x - bw // 2:x + bw // 2] = 40
+        line = np.zeros((h // 2, w // 2), np.uint8)
+        line[20:30, 10:80] = 255
+        codes = np.stack([rng.integers(0x3041, 0x3097, n),
+                          rng.integers(0, 16, n)], 1)
+        return img, line, pos.astype(np.float32), codes.astype(np.int32)
+
+    with ShardWriter(str(root / "t%03d.tar"), samples_per_shard=3) as wr:
+        for i in range(6):
+            img, line, pos, codes = page()
+            wr.write({"__key__": f"s{i}", "image.npy": img,
+                      "textline.npy": line,
+                      "sepline.npy": np.zeros_like(line),
+                      "position.npy": pos, "code_list.npy": codes})
+        shards = list(wr.paths)
+    fix = root / "fix"
+    fix.mkdir()
+    for i in range(2):
+        img, line, pos, codes = page()
+        Image.fromarray(img).save(fix / f"p{i}.png")
+        Image.fromarray(line).save(fix / f"p{i}.png.lines.png")
+        boxes = [{"cx": float(x), "cy": float(y), "w": float(w),
+                  "h": float(h), "text": chr(int(c)),
+                  "p_code1": float(f & 1), "p_code8": float(f >> 3 & 1)}
+                 for (x, y, w, h), (c, f) in zip(pos, codes)]
+        (fix / f"p{i}.json").write_text(json.dumps({"textbox": boxes}))
+    return shards, str(fix)
+
+
+def test_stage2_iteration_on_card_equals_cpu(cuda, tmp_path, monkeypatch):
+    """One stage-2 iteration of ``train2.train`` (a streamed step at weight
+    0.5, a fixdata step at 2.0) from one stage-1 checkpoint on the same
+    loaders' batches: the tiny detector's final state on the card equals
+    the CPU's, f32."""
+    from findtextcenternet_tpu_torch.train import train2
+    from findtextcenternet_tpu_torch.train.checkpoint import save_checkpoint
+
+    cfg = _tiny_detector_config()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, batch_size=2, epochs=1, log_every=1))
+    shards, fix = _stage2_data(tmp_path)
+    _, st = build_detector_state(cfg, seed=0, device="cpu")
+    stage1 = str(tmp_path / "result1")
+    save_checkpoint(stage1, st, cfg)
+    real = train2.build_detector_state
+
+    def f32_state(*a, **kw):
+        model, state = real(*a, **kw)
+        state.compute_dtype = torch.float32
+        return model, state
+
+    monkeypatch.setattr(train2, "build_detector_state", f32_state)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark",
+                        torch.backends.cudnn.benchmark)
+    finals = []
+    for i, dev in enumerate(("cpu", cuda)):
+        c = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, checkpoint_dir=str(tmp_path / f"run{i}")))
+        state = train2.train(fix, shards=shards, config=c, init_from=stage1,
+                             steps_per_epoch=1, weight_fix=2.0,
+                             weight_stream=0.5, num_workers=1, device=dev)
+        assert state.step == 2 and state.optimizer.count == 2
+        finals.append({k: v.detach().cpu() for k, v in
+                       state.model.state_dict().items()})
+    for k, want in finals[0].items():
+        np.testing.assert_allclose(finals[1][k].numpy(), want.numpy(),
+                                   atol=1e-4, rtol=1e-4, err_msg=k)
+
+
 def test_topk_fmask_tie_order_on_card(cuda):
     """A batch-32 GT keymap at the training size, mostly exact zeros and
     plateaus: the card selects the indices the CPU does, lower index first

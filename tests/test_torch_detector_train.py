@@ -21,9 +21,9 @@ convolutions or the heads' input BNs, the feature head's output conv that
 feeds the SimpleDecoder's BN), so their gradient is 0 in exact arithmetic
 (below 1e-16 of the largest in float64). Both packages update them by
 Adam-normalised f32 rounding noise of either sign, so those tensors are
-held within 3 learning rates, the most such updates can differ over the
-test's steps, and the BN running means they shift within the bound that
-follows (:func:`zero_grad`).
+held within one learning rate a step, the most such updates can differ
+over the test's steps, and the BN running means they shift within the
+bound that follows (:func:`zero_grad_bounds`).
 Each JAX reference is jitted once in a module fixture (its compile
 dominates the file's time).
 """
@@ -187,17 +187,21 @@ def ref():
 
 @pytest.fixture(scope="module")
 def zero_grad(ref):
-    """``{name: allowed distance}`` for the parameters whose gradient is 0
-    in exact arithmetic (below 1e-9 of the largest in a float64 backward of
-    the port's model; rounding leaves ~1e-17 there) and for the BN running
-    means they shift. Such a parameter is held within ``3 * LR``. A
-    running mean that moves by ``r`` times a shift of those parameters in
-    one train-mode forward (measured in float64) is held within ``TOL + 3
-    * STEPS * LR * r``: each step's forward moves it by at most ``r``
-    times the parameters' distance."""
+    return zero_grad_bounds(ref["variables"], STEPS, LR)
+
+
+def zero_grad_bounds(variables, steps: int, lr: float) -> dict:
+    """``{name: allowed distance}`` after ``steps`` optimizer steps at
+    learning rate ``lr`` for the parameters whose gradient is 0 in exact
+    arithmetic (below 1e-9 of the largest in a float64 backward of the
+    port's model on ``variables``; rounding leaves ~1e-17 there) and for
+    the BN running means they shift. Such a parameter is held within
+    ``steps * lr``. A running mean that moves by ``r`` times a shift of
+    those parameters in one train-mode forward (measured in float64) is
+    held within ``TOL + steps * steps * lr * r``: each step's forward
+    moves it by at most ``r`` times the parameters' distance."""
     model = TextDetectorModel("tiny", feature_dim=8, decoder_mid_dim=32)
-    model.load_state_dict(text_detector_state_from_flax(ref["variables"],
-                                                        "tiny"))
+    model.load_state_dict(text_detector_state_from_flax(variables, "tiny"))
     model.double().train()
     b = _batch(0)
     label = torch.from_numpy(b["labelmap"]).double()
@@ -227,11 +231,11 @@ def zero_grad(ref):
 
     shift = 1e-3
     a, c = buffers_after(0.0), buffers_after(shift)
-    allowed = {n: 3 * LR for n in names}
+    allowed = {n: steps * lr for n in names}
     for k in a:
         r = float((c[k] - a[k]).abs().max()) / shift
         if r > 1e-9:
-            allowed[k] = TOL + 3 * STEPS * LR * r
+            allowed[k] = TOL + steps * steps * lr * r
     return allowed
 
 

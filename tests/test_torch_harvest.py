@@ -43,7 +43,8 @@ from findtextcenternet_tpu_torch.models.detector import TextDetectorModel
 from findtextcenternet_tpu_torch.models.init import init_flax_defaults_
 from findtextcenternet_tpu_torch.train.checkpoint import save_checkpoint
 from findtextcenternet_tpu_torch.train.state import create_train_state
-from test_torch_factory import one_native_rasterizer  # noqa: F401
+from test_torch_factory import (  # noqa: F401
+    dejavu_fonts, one_native_rasterizer)
 from test_torch_pipeline import shared_native_libs  # noqa: F401
 
 FONTS = sorted(glob.glob("/usr/share/fonts/truetype/dejavu/*.ttf"))

@@ -19,8 +19,6 @@ import torch
 from PIL import Image
 
 from findtextcenternet_tpu import config as jconfig
-from findtextcenternet_tpu.infer import hostops as jhostops
-from findtextcenternet_tpu.infer import lineengine as jlineengine
 from findtextcenternet_tpu.infer.pipeline import OCRPipeline as JPipeline
 from findtextcenternet_tpu.models.detector import CenterNetDetection as JDet
 from findtextcenternet_tpu.models.detector import SimpleDecoder as JSimple
@@ -29,28 +27,18 @@ from findtextcenternet_tpu.models.transformer import TransformerDims
 from findtextcenternet_tpu.tools import annotate as jannotate
 from findtextcenternet_tpu.tools import lineengine_parity as jparity
 from findtextcenternet_tpu_torch import config as tconfig
-from findtextcenternet_tpu_torch.infer import native
 from findtextcenternet_tpu_torch.infer.pipeline import OCRPipeline
 from findtextcenternet_tpu_torch.io import from_jax
 from findtextcenternet_tpu_torch.models.detector import (
     CenterNetDetection, SimpleDecoder)
 from findtextcenternet_tpu_torch.tools import (
     annotate, decode_bench, fused_attn_check, lineengine_parity)
+# both packages on the port's builds of the line engine, the host ops and
+# the glyph engine (the same C ABIs); no test here runs ``make``
+from test_torch_factory import one_native_rasterizer  # noqa: F401
+from test_torch_pipeline import shared_native_libs  # noqa: F401
 
 torch.set_num_threads(1)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def shared_native_libs():
-    """Both packages call the line engine and host ops the port builds
-    (the same C ABI); no test here runs ``make``."""
-    saved = [(m, m.LIB_PATH, m._lib) for m in (jlineengine, jhostops)]
-    jlineengine.LIB_PATH = native.build("lineengine")
-    jhostops.LIB_PATH = native.build("hostops")
-    jlineengine._lib = jhostops._lib = None
-    yield
-    for m, path, lib in saved:
-        m.LIB_PATH, m._lib = path, lib
 
 
 def _configs():

@@ -33,7 +33,11 @@ from findtextcenternet_tpu_torch.models.transformer import (
 from findtextcenternet_tpu_torch.tools import (
     annotate_gui, lineengine_parity, parity_published, train_bench,
     trained_margin_check)
+from findtextcenternet_tpu_torch.tools.timing import H100_PEAK_TFLOPS
 from findtextcenternet_tpu_torch.utils import profiling, text
+# both packages render factory pages through the port's build of the glyph
+# engine; no test here runs ``make``
+from test_torch_factory import one_native_rasterizer  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -291,6 +295,44 @@ def test_train_bench_tpu_only_flags_exit_2(flag, capsys):
     assert train_bench.main([flag]) == 2
     err = capsys.readouterr().err.strip().splitlines()
     assert len(err) == 1 and "TPU v5e" in err[0]
+
+
+@pytest.mark.parametrize("tool", ["train_bench", "trained_margin_check"])
+def test_jax_tool_flags_parse_on_the_port(tool, capsys, tmp_path):
+    """The JAX tools' flags that the port once refused: train_bench's
+    ``--no-remat-flops=F`` reports ``mfu_algorithmic`` = F / step s /
+    peak, as JAX does; trained_margin_check's ``--cpu`` is ``--device
+    cpu`` and conflicts with another device."""
+    if tool == "train_bench":
+        assert train_bench.main(["--transformer", "--tiny", "--batch", "2",
+                                 "--iters", "1", "--device", "cpu",
+                                 "--no-remat-flops=1e15"]) == 0
+        out = _last_json(capsys)
+        assert out["mfu_algorithmic"] == pytest.approx(
+            1e15 / (out["step_ms"] * 1e-3) / (H100_PEAK_TFLOPS * 1e12),
+            rel=1e-12)
+        assert train_bench.main(["--transformer", "--tiny", "--batch", "2",
+                                 "--iters", "1", "--device", "cpu"]) == 0
+        assert "mfu_algorithmic" not in _last_json(capsys)
+        return
+    small = ["--embed", "32", "--seq", "16", "--hira-only"]
+    args = trained_margin_check.parse_args(small + ["--cpu"])
+    assert args.device == "cpu" and args.cpu
+    assert trained_margin_check.parse_args(
+        small + ["--cpu", "--device", "cpu"]).device == "cpu"
+    assert trained_margin_check.parse_args(small).device is None
+    with pytest.raises(SystemExit) as e:
+        trained_margin_check.parse_args(small + ["--cpu", "--device",
+                                                 "cuda"])
+    assert e.value.code == 2
+    assert "--cpu conflicts" in capsys.readouterr().err
+    # the JAX command line runs to its end (two steps train nothing, and
+    # the gate's outcome is in the JSON, not the exit code, as in JAX)
+    assert trained_margin_check.main(small + [
+        "--cpu", "--batch", "4", "--steps", "2", "--epochs", "1",
+        "--windows", "3", "--ckpt-dir", str(tmp_path / "ck")]) == 0
+    out = _last_json(capsys)
+    assert out["gate_passes"] is False and out["trained"]["windows"] == 3
 
 
 def test_trained_margin_check_runs_and_margins_match_jax(tmp_path):
