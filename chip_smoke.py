@@ -253,6 +253,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    against a served JSON endpoint give the expected text and files. The
    phase has a time limit of its own (``HOST_IO_SECONDS``) and ends with
    no downloader running.
+15. The live int8 detector (``export/quantize.py``), run after phase 8:
+   at full width, phase 8's ``model.pt`` detector calibrated on the
+   serving page's 12 tiles (``calibrate_detector``) and quantized from its
+   f32 weights (``build_int8_detector``): on one 8-tile chunk in bf16 the
+   int8 detector's heatmap against the live one's within the JAX int8
+   gate's bounds (delta under 0.30 of the RMS, correlation above 0.995)
+   on the serving cell's weights (a seed fixes them), the same numbers
+   printed for ``model.pt``; the serving
+   page through the live bf16 pipeline and the int8 pipeline
+   (``detector_apply``), 3 pages each in turns, under phase 8's detections
+   hook (the outputs must be equal; no box gate): ms/page, peak GB, the
+   NMS kernel twice a page. Then the JAX gate's tiny rig on painted pages:
+   ``train1`` on the card in rounds of 8 steps until the f32 float page
+   finds more than 2 boxes (the steps printed), calibration on painted
+   tiles, the heatmap gate in bf16, box agreement above 0.9 between the
+   f32 float and f32 int8 pages, the texts counted, and the f32 int8
+   detector at one ``qstate`` on the card against the CPU within 1e-4 x
+   max(1, |ref|). Its launches stand beside ``kernels`` as
+   ``int8_launches``, never on a shape row.
 
 Before them a line gives each phase's seconds (``phase seconds``), then
 the total. The second-to-last line is the kernels JSON (one row per
@@ -2506,6 +2525,360 @@ def phase_weights_loop(det_ckpt: str, tf_ckpt: str):
     return files["model.pt"][0], files["model3.pt"][0]
 
 
+# the live int8 detector (phase_int8_live): the JAX int8 trained-weights
+# gate's thresholds (tests/test_int8_trained.py), its tiny rig's config, and
+# the card's own rig on painted pages
+INT8_HEAT_REL, INT8_HEAT_CORR = 0.30, 0.995  # heatmap delta / RMS, corr
+INT8_BOX_AGREE = 0.9         # float vs int8 box agreement (f32 detectors)
+INT8_CARD_RTOL = 1e-4        # int8 outputs card vs CPU: x max(1, |ref|)
+INT8_TURNS = ("live", "int8", "int8", "live", "live", "int8")
+INT8_TILE = 64               # the tiny rig's tiles
+INT8_ROUND_STEPS = 8         # train1 steps a round of the card's rig
+INT8_MAX_ROUNDS = 6          # rounds until the float page finds boxes
+INT8_RIG_PAGES = 24          # painted pages of the rig's shards
+INT8_BUDGET_S = 40
+
+
+def heatmap_delta(hf, hq):
+    """(max |hq - hf| over the RMS of hf, correlation), in f32, as the JAX
+    int8 gate computes them."""
+    hf = hf.float().flatten()
+    hq = hq.float().flatten()
+    rms = float(hf.square().mean().sqrt()) or 1.0
+    a, b = (hq - hq.mean()).double(), (hf - hf.mean()).double()
+    corr = float((a * b).sum() / (a.norm() * b.norm()))
+    return float((hq - hf).abs().max()) / rms, corr
+
+
+def int8_rig_config(ckpt_dir: str):
+    """``tests/test_int8_trained.py``'s tiny rig (``_cfg``) in the port's
+    ``Config``: the tiny detector on 64² tiles, a 32-d one-block
+    Transformer, batch 2, 1e-3 with 2 warm-up steps."""
+    import dataclasses
+
+    from findtextcenternet_tpu_torch.config import Config
+
+    cfg = Config()
+    return dataclasses.replace(
+        cfg,
+        detector=dataclasses.replace(
+            cfg.detector, model_size="tiny", decoder_mid_dim=32,
+            image_size=(INT8_TILE, INT8_TILE), fmask_topk_per_sample=8),
+        transformer=dataclasses.replace(
+            cfg.transformer, embed_dim=32, head_num=4, enc_block_num=1,
+            dec_block_num=1, max_enc_seq_len=32, max_dec_seq_len=32),
+        inference=dataclasses.replace(
+            cfg.inference, tile_size=INT8_TILE, detector_batch=4,
+            max_peaks_per_tile=64),
+        train=dataclasses.replace(
+            cfg.train, batch_size=2, epochs=1, learning_rate=1e-3,
+            warmup_steps=2, bn_recalib_batches=1, log_every=10,
+            checkpoint_dir=ckpt_dir))
+
+
+def box_agreement(out_f, out_q):
+    """(matched, fraction): boxes of one page matched one to one with
+    boxes of the other whose centres lie within 2 px (the JAX gate's
+    distance), over the larger box count."""
+    free = [(b["cx"], b["cy"]) for b in out_q["box"]]
+    n_q, n = len(free), 0
+    for b in out_f["box"]:
+        for j, (x, y) in enumerate(free):
+            if abs(b["cx"] - x) < 2 and abs(b["cy"] - y) < 2:
+                del free[j]
+                n += 1
+                break
+    return n, n / max(len(out_f["box"]), n_q, 1)
+
+
+def int8_trained_gate(root: str, device: str = "cuda") -> dict:
+    """The int8 trained-weights gate at the tiny rig on painted pages (no
+    fonts on the card machine): ``train1`` on ``device`` in rounds of
+    ``INT8_ROUND_STEPS`` steps (each resumes the last) until the f32 float
+    pipeline finds more than 2 boxes on a held-out painted page; then
+    calibration on painted tiles, the heatmap gate in bf16, the box gate
+    with f32 detectors, the texts counted, and the f32 int8 detector at one
+    ``qstate`` on ``device`` against the CPU. Returns the record."""
+    import dataclasses
+    import functools
+
+    import torch
+
+    from findtextcenternet_tpu_torch.export.quantize import (
+        build_int8_detector, calibrate_detector)
+    from findtextcenternet_tpu_torch.infer.pipeline import OCRPipeline
+    from findtextcenternet_tpu_torch.io.torch_import import (
+        split_detector_state)
+    from findtextcenternet_tpu_torch.models.detector import (
+        CenterNetDetection)
+    from findtextcenternet_tpu_torch.ops import nms
+    from findtextcenternet_tpu_torch.train import train1
+
+    rng = np.random.default_rng(12)
+    side, glyphs = 256, 12
+    # 24 pages: the loader's one worker respawns after each pass over the
+    # shards (~10 s on the card machine), so a pass covers a round's
+    # batches and its BN recalibration batch
+    shards = write_shards(os.path.join(root, "data", "s%03d.tar"), rng,
+                          INT8_RIG_PAGES, 4, side, side, glyphs)
+    cal_tiles = []
+    for _ in range(2):
+        page = paint_page(rng, side, side, glyphs)["image"]
+        for y in (0, 128):
+            t = page[y:y + INT8_TILE, :INT8_TILE]
+            cal_tiles.append(np.stack([t] * 3, -1).astype(np.float32)
+                             / 255.0)
+    batches = [np.stack(cal_tiles[:2]), np.stack(cal_tiles[2:])]
+    # the held-out page at 9x the area and glyphs (~70 boxes): the 8-step
+    # keymap moves a few percent of its peaks a cell under the int8
+    # weights, and on a page of ~10 boxes one box is the gate's whole
+    # allowance
+    img = np.stack([paint_page(rng, 3 * side, 3 * side, 9 * glyphs)[
+        "image"]] * 3, -1)
+    cfg = int8_rig_config(os.path.join(root, "ckpt"))
+    fdim = cfg.detector.feature_dim
+    rec = {"boxes_by_round": [], "train1_s": []}
+    t0 = time.perf_counter()
+    for rounds in range(1, INT8_MAX_ROUNDS + 1):
+        t1 = time.perf_counter()
+        state = train1.train(shards, config=dataclasses.replace(
+            cfg, train=dataclasses.replace(cfg.train, epochs=rounds)),
+            num_workers=1, steps_per_epoch=INT8_ROUND_STEPS, device=device)
+        rec["train1_s"].append(time.perf_counter() - t1)
+        det_sd = {k: v.detach().float().cpu() for k, v in
+                  split_detector_state(state.eval_state_dict())[0].items()}
+        del state
+        det32 = CenterNetDetection("tiny", fdim)
+        det32.load_state_dict(det_sd)
+        det32 = det32.to(device).eval()
+        if rounds == 1:
+            pipe_f = OCRPipeline(cfg, detector_state=det_sd, seed=0,
+                                 device=device)
+            tf_sd = pipe_f.transformer.state_dict()
+        pipe_f32 = OCRPipeline(cfg, transformer_state=tf_sd,
+                               detector_apply=det32, device=device)
+        out_f32 = pipe_f32(img)
+        rec["boxes_by_round"].append(len(out_f32["box"]))
+        if len(out_f32["box"]) > 2:
+            break
+    else:
+        raise AssertionError(f"int8 rig: the float page found no more than "
+                             f"2 boxes after {rounds} rounds "
+                             f"({rec['boxes_by_round']})")
+    rec["train_steps"] = rounds * INT8_ROUND_STEPS
+    rec["rounds_s"] = time.perf_counter() - t0
+    pipe_f.detector.load_state_dict(det_sd)
+
+    nms.launches.reset()
+    cal = calibrate_detector(pipe_f.detector, batches)
+    fn, qstate = build_int8_detector(pipe_f.detector, cal, state=det_sd)
+    x = torch.from_numpy(batches[0]).to(device)
+    with torch.inference_mode():
+        hf, _ = pipe_f.detector(x)
+        hq, _ = fn(qstate, x)
+    rec["heat_rel"], rec["heat_corr"] = heatmap_delta(hf, hq)
+    fn32, qstate32 = build_int8_detector(det32)
+    pipes = {
+        "int8 f32": OCRPipeline(
+            cfg, transformer_state=tf_sd, device=device,
+            detector_apply=functools.partial(fn32, qstate32)),
+        "bf16": pipe_f,
+        "int8 bf16": OCRPipeline(
+            cfg, transformer_state=tf_sd, device=device,
+            detector_apply=functools.partial(fn, qstate))}
+    out = {"f32": out_f32, **{k: p(img) for k, p in pipes.items()}}
+    rec["launches"] = nms.launches.count
+    for a, b in (("f32", "int8 f32"), ("bf16", "int8 bf16")):
+        n, frac = box_agreement(out[a], out[b])
+        ta, tb = out[a]["text"], out[b]["text"]
+        rec[f"{a} vs {b}"] = dict(
+            boxes=[len(out[a]["box"]), len(out[b]["box"])], agree=n,
+            agreement=frac, chars=[len(ta), len(tb)],
+            same_chars=sum(p == q for p, q in zip(ta, tb)), equal=ta == tb)
+    rec["box_agreement"] = rec["f32 vs int8 f32"]["agreement"]
+    rec["gate_s"] = time.perf_counter() - t0 - rec["rounds_s"]
+
+    # one qstate, the f32 int8 detector on the device against the CPU
+    det_cpu = CenterNetDetection("tiny", fdim)
+    det_cpu.load_state_dict(det_sd)
+    fn_cpu, _ = build_int8_detector(det_cpu.eval())
+    qs_cpu = {part: {k: v.cpu() for k, v in t.items()}
+              for part, t in qstate32.items()}
+    xs = torch.from_numpy(np.concatenate(batches))
+    with torch.inference_mode():
+        got = fn32(qstate32, xs.to(device))
+        want = fn_cpu(qs_cpu, xs)
+    rec["card_vs_cpu"] = max(_rel_err(g.cpu(), w) for g, w in
+                             zip(got, want))
+    return rec
+
+
+def phase_int8_live(model_pt: str, model3_pt: str) -> dict:
+    """The live int8 detector (``export/quantize.py``) end to end on the
+    card: (a) at full width, the weights loop's ``model.pt`` detector
+    calibrated on the serving page's ``ART_CALIB_TILES`` tiles and
+    quantized (``build_int8_detector`` on the f32 weights); the int8
+    against the live heatmap of one 8-tile chunk in bf16 on the JAX gate's
+    thresholds, on the serving cell's weights (a seed fixes them; on
+    ``model.pt`` the number is printed); the serving page through the live
+    bf16 pipeline and the int8 pipeline in turns (``INT8_TURNS``, the
+    weights loop's detections hook, so the outputs must be equal and no
+    box gate applies): ms/page, peak memory, NMS twice a page; (b)
+    :func:`int8_trained_gate`, every gate on the card and the card against
+    the CPU. Returns the phase's kernel launches by part."""
+    import functools
+    import statistics
+
+    import torch
+
+    from findtextcenternet_tpu_torch.config import Config
+    from findtextcenternet_tpu_torch.export.quantize import (
+        build_int8_detector, calibrate_detector)
+    from findtextcenternet_tpu_torch.infer.pipeline import (
+        DetectedPage, LazyFeatures, OCRPipeline)
+    from findtextcenternet_tpu_torch.io.torch_import import (
+        load_torch_state_dict, split_detector_state)
+    from findtextcenternet_tpu_torch.models.detector import (
+        CenterNetDetection)
+    from findtextcenternet_tpu_torch.models.init import init_flax_defaults_
+    from findtextcenternet_tpu_torch.ops import attention, nms
+
+    t_phase = time.perf_counter()
+    cfg = Config()
+    det_sd, _ = split_detector_state(load_torch_state_dict(model_pt))
+    tf_sd = load_torch_state_dict(model3_pt)
+    secs = {"load": time.perf_counter() - t_phase}
+    t0 = time.perf_counter()
+    live = OCRPipeline(cfg, detector_state=det_sd, transformer_state=tf_sd)
+    secs["live_pipeline"] = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    img, raw_locs, lines, seps = synth_page_and_boxes(rng)
+    feats = rng.standard_normal(
+        (len(raw_locs), cfg.detector.feature_dim)).astype(np.float16)
+    lazy = LazyFeatures(torch.from_numpy(feats).to("cuda"),
+                        np.arange(len(raw_locs)))
+    locs, kept = live._filter_boxes(raw_locs, lazy, img, lines, seps,
+                                    np.zeros(lines.shape + (4,), np.float32))
+    realistic = DetectedPage(locs, kept, lines, seps)
+    padx, pady, offs, _ = live.tile_grid(*img.shape[:2])
+    padded = np.pad(img, [[0, pady], [0, padx], [0, 0]],
+                    constant_values=255)
+    ts = cfg.inference.tile_size
+    tiles = np.stack([padded[y:y + ts, x:x + ts]
+                      for x, y in offs[:ART_CALIB_TILES]])
+    tiles = tiles.astype(np.float32) / 255.0
+    n_chunks = len(live._chunk_sizes(len(offs)))
+
+    t0 = time.perf_counter()
+    cal = calibrate_detector(live.detector, [tiles[:8], tiles[8:]])
+    secs["calibrate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fn, qstate = build_int8_detector(live.detector, cal, state=det_sd)
+    torch.cuda.synchronize()
+    secs["quantize"] = time.perf_counter() - t0
+    q_bytes = sum(v.numel() * v.element_size()
+                  for part in qstate.values() for v in part.values())
+    live_bytes = sum(v.numel() * v.element_size()
+                     for v in live.detector.state_dict().values())
+    n_int8 = sum(v.dtype == torch.int8 for v in qstate["state"].values())
+    # the heatmaps of one 8-tile chunk, int8 against float as served
+    # (bf16): gated on the serving cell's weights, drawn from a seed as
+    # OCRPipeline(seed=0) draws them; printed for model.pt, nine steps
+    # from random, whose number moves between runs with their training
+    det0 = CenterNetDetection(cfg.detector.model_size,
+                              cfg.detector.feature_dim)
+    init_flax_defaults_(det0, torch.Generator().manual_seed(0))
+    sd0 = det0.state_dict()
+    det0 = det0.to("cuda", torch.bfloat16).eval()
+    fn0, qstate0 = build_int8_detector(det0, state=sd0)
+    x = torch.from_numpy(tiles[:8]).to("cuda")
+    with torch.inference_mode():
+        heat = {"serving weights": heatmap_delta(det0(x)[0],
+                                                 fn0(qstate0, x)[0]),
+                "model.pt": heatmap_delta(live.detector(x)[0],
+                                          fn(qstate, x)[0])}
+    del det0, sd0, fn0, qstate0, x
+    torch.cuda.empty_cache()
+    rel, corr = heat["serving weights"]
+    log(f"int8 live: {len(cal.ranges)} calibration ranges over "
+        f"{len(tiles)} page tiles, {n_int8} int8 tensors, qstate "
+        f"{q_bytes / 2**20:.1f} MiB against the live bf16 detector's "
+        f"{live_bytes / 2**20:.1f} MiB; int8 vs live heatmaps of one "
+        f"8-tile chunk in bf16 (delta of the RMS, correlation): "
+        f"{json.dumps({k: [round(v, 6) for v in d] for k, d in heat.items()})}"
+        f"; gated on the serving weights: delta under {INT8_HEAT_REL}, "
+        f"correlation above {INT8_HEAT_CORR}")
+    if not (rel < INT8_HEAT_REL and corr > INT8_HEAT_CORR):
+        raise AssertionError(f"int8 live heatmap: delta {rel}, corr {corr}")
+
+    t0 = time.perf_counter()
+    pipes = {"live": live,
+             "int8": OCRPipeline(cfg, transformer_state=tf_sd,
+                                 detector_apply=functools.partial(
+                                     fn, qstate))}
+    secs["int8_pipeline"] = time.perf_counter() - t0
+    served, ms, peak, launches = {}, {}, {}, {}
+    for name, p in pipes.items():
+        p.detections_hook = lambda page_, image: realistic
+        p(img)                                            # warm-up
+    nms.launches.reset()
+    attention.launches.reset()
+    for name in INT8_TURNS:
+        p = pipes[name]
+        before = nms.launches.count
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        served[name] = p(img)
+        torch.cuda.synchronize()
+        ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        peak[name] = max(peak.get(name, 0),
+                         torch.cuda.max_memory_allocated() / 1e9)
+        launches.setdefault(name, []).append(nms.launches.count - before)
+    full = {"nms_sigmoid_masked": nms.launches.count,
+            "attention_fwd": attention.launches.count,
+            "shapes": "(8,192,192) and (4,192,192) f32, one a detector "
+                      "chunk, 3 live and 3 int8 pages"}
+    if served["int8"] != served["live"]:
+        raise AssertionError("int8 live: the hooked pages differ")
+    if any(n != n_chunks for v in launches.values() for n in v):
+        raise AssertionError(f"int8 live: NMS launches a page {launches}")
+    log(f"int8 live: serving page {PAGE_W}x{PAGE_H} ({len(offs)} tiles, "
+        f"{n_chunks} chunks), pages in turns {'/'.join(INT8_TURNS)}: ms "
+        f"{json.dumps({k: [round(t, 2) for t in v] for k, v in ms.items()})}"
+        f" (median live {statistics.median(ms['live']):.2f}, int8 "
+        f"{statistics.median(ms['int8']):.2f}); peak GB "
+        f"{json.dumps({k: round(v, 3) for k, v in peak.items()})}; NMS "
+        f"launches a page {json.dumps(launches)}; the hooked outputs equal; "
+        f"seconds {json.dumps({k: round(v, 2) for k, v in secs.items()})}")
+    for p in pipes.values():
+        p.detections_hook = None
+    del pipes, live, qstate, fn
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rec = int8_trained_gate(os.path.join(CKPT_ROOT, "int8"))
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"int8 live: trained gate (tiny rig, painted pages): "
+        f"{json.dumps(rec)}")
+    if not (rec["heat_rel"] < INT8_HEAT_REL
+            and rec["heat_corr"] > INT8_HEAT_CORR):
+        raise AssertionError("int8 trained gate: heatmap")
+    if not rec["box_agreement"] > INT8_BOX_AGREE:
+        raise AssertionError("int8 trained gate: box agreement")
+    if rec["card_vs_cpu"] > INT8_CARD_RTOL:
+        raise AssertionError("int8 trained gate: card vs CPU")
+    if rec["launches"] == 0:
+        raise AssertionError("int8 trained gate: no NMS launch")
+    seconds = time.perf_counter() - t_phase
+    log(f"int8 live phase: {seconds:.1f} s (budget {INT8_BUDGET_S} s)")
+    return {"serving page": full,
+            "trained gate": {"nms_sigmoid_masked": rec["launches"],
+                             "shapes": f"(B,{INT8_TILE // 4},"
+                                       f"{INT8_TILE // 4}) f32, B <= 4, "
+                                       f"one a detector chunk, 3 pages"}}
+
+
 # tolerances of the artifact phase, on the card with TF32 off: the graphs
 # and the live f32 modules run the same f32 arithmetic in other orders
 # (separate BatchNorm nodes, interpolation-matrix resizes, MatMul graphs,
@@ -4160,6 +4533,8 @@ def main() -> int:
                   batches)
         del batches
         loop = timed("weights_loop", phase_weights_loop, det_ckpt, tf_ckpt)
+        int8_launches = timed("int8_live", phase_int8_live, *loop)
+        torch.cuda.empty_cache()
         timed("artifacts", phase_artifacts, *loop)
         tools_launches = timed("tools", phase_tools, smi)
         torch.cuda.empty_cache()
@@ -4190,6 +4565,7 @@ def main() -> int:
     log(smi)
     log(json.dumps({"kernels": kernels_line,
                     "tools_launches": tools_launches,
+                    "int8_launches": int8_launches,
                     "fused_heads_launches": fused_launches}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

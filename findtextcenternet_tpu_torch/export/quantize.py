@@ -18,7 +18,7 @@ ranges are keyed by the JAX module paths too, since
 from __future__ import annotations
 
 import re
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -264,7 +264,8 @@ def calibrate_detector_edges(detector: nn.Module, batches,
 
 
 def build_int8_detector(detector: nn.Module, calibrator=None,
-                        exclude: Iterable[str] = DEFAULT_EXCLUDE):
+                        exclude: Iterable[str] = DEFAULT_EXCLUDE,
+                        state: Optional[State] = None):
     """Int8-weight detector: per-channel int8 weights with the reference's
     feature/keymap head exclusions, dequantized on use.
 
@@ -277,11 +278,20 @@ def build_int8_detector(detector: nn.Module, calibrator=None,
     heatmap tail; full static activation QDQ is the ONNX exporter's job
     (``onnx_models --int8``). ``calibrator`` is accepted for symmetry with
     that path and unused here.
+
+    ``state`` holds the weights to quantize (the detector's keys; default
+    the detector's own). Give the f32 weights where the detector computes
+    in bf16, as a serving pipeline's does: the JAX package quantizes its
+    f32 variables whatever the module's dtype, and scales and int8 values
+    taken from a bf16 copy differ from them.
     """
     del calibrator
     dev = next(detector.parameters()).device
     dtype = next(detector.parameters()).dtype
-    qparams, scales = quantize_params(detector.state_dict(), exclude)
+    # quantized on the detector's device, not on the host
+    qparams, scales = quantize_params(
+        detector.state_dict() if state is None else
+        {k: v.to(dev) for k, v in state.items()}, exclude)
     qstate = {"state": {k: v.to(dev) for k, v in qparams.items()},
               "scales": {k: v.to(dev) for k, v in scales.items()}}
 

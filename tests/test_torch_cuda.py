@@ -973,6 +973,49 @@ def test_exported_program_loads_onto_the_card(cuda, tmp_path):
             _assert_maps_close(g, w, atol=1e-4, rtol=1e-4)
 
 
+def test_int8_live_detector_on_card_equals_cpu(cuda):
+    """``build_int8_detector`` on the seed-11 tiny detector in f32, at one
+    ``qstate`` (quantized on the CPU, copied to the card): the card's
+    heatmap and features within 1e-4 x max(1, |ref|) of the CPU's, and the
+    int8 pipeline's page gives the same boxes (to the convolutions'
+    summation order) and text on both, the card's through the NMS
+    kernel."""
+    import copy
+    import functools
+
+    from findtextcenternet_tpu_torch.export.quantize import \
+        build_int8_detector
+
+    cfg, det, tf, _ = _seed11_models()
+    _, qstate = build_int8_detector(det)
+    assert any(v.dtype == torch.int8 for v in qstate["state"].values())
+    x = torch.from_numpy(np.random.default_rng(3).random(
+        (2, 64, 64, 3)).astype(np.float32))
+    img = _seed11_page()
+    maps, pages = {}, {}
+    for d in ("cpu", cuda):
+        fn, _ = build_int8_detector(copy.deepcopy(det).to(d))
+        qs = {part: {k: v.to(d) for k, v in t.items()}
+              for part, t in qstate.items()}
+        with torch.inference_mode():
+            maps[d] = fn(qs, x.to(d))
+        pipe = OCRPipeline(cfg, transformer_state=tf.state_dict(),
+                           detector_apply=functools.partial(fn, qs),
+                           device=d)
+        nms.launches.reset()
+        pages[d] = (pipe.run_detector(img), pipe(img), nms.launches.count)
+    for g, w in zip(maps[cuda], maps["cpu"]):
+        assert g.device.type == "cuda" and g.dtype == torch.float32
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * scale
+    (dcpu, want, n_cpu), (dgpu, got, n_gpu) = pages["cpu"], pages[cuda]
+    assert len(dcpu.locations) > 0 and n_cpu == 0 and n_gpu > 0
+    assert dgpu.locations.shape == dcpu.locations.shape
+    np.testing.assert_allclose(dgpu.locations, dcpu.locations, atol=1e-3,
+                               rtol=1e-4)
+    assert got["text"] == want["text"]
+
+
 # ---------------------------------------------------------------------
 # the mesh under NCCL (a world of 1: NCCL refuses two ranks on one card;
 # its groups of one rank are active, so every collective runs under NCCL)
