@@ -56,11 +56,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    windows of 3 pages in turns default, host, host, default, and their
    outputs must be equal. The heatmap must be finite and the output well
    formed. Prints ms/page and tiles/s per window (and their median and
-   spread per route), peak device memory, each stage's time and the bytes
-   read back from the device a page on both paths, the device's idle share
-   over one page (kernel time from the profiler over the median
-   unprofiled page wall time), the attention kernel's time and launches in
-   that profiled page, and the decode stage timed in turns. Then a
+   spread per route), peak device memory, and the bytes read back from the
+   device a page on both paths (the default path's under half the host
+   path's, the fused page's attention kernel launched), and the decode
+   stage timed in turns. Then a
    bucketed page: ``decode_len_buckets`` (64, 128, 256, 400) on a
    degenerate page of 56 short windows, on the default path's
    FeatureStream (glyph features on the card): each bucket's windows alone
@@ -967,77 +966,6 @@ def training_kernel_rows(rng):
     return rows, info
 
 
-def stage_breakdown(p, img, realistic, reps: int = 3) -> dict:
-    """Median host-clock ms of each pipeline stage on one page (device
-    synchronised around each), the kernel time of the detector and decode
-    stages, the device's idle share over one full page: 1 - (kernel time of
-    one profiled page) / (median wall time of unprofiled pages), and the
-    bytes the page path reads back from the device (``run_detector`` alone,
-    and the whole page with its decode)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    def med(fn):
-        ts, out = [], None
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            ts.append((time.perf_counter() - t0) * 1e3)
-        return float(np.median(ts)), out
-
-    padx, pady, offs, bounds = p.tile_grid(*img.shape[:2])
-    page = np.pad(img, [[0, pady], [0, padx], [0, 0]], constant_values=255)
-    page_dev = p._upload(page[..., 0])        # the grayscale upload path
-
-    def detect_device():
-        # the detector, peaks and maps of every chunk, with the readbacks
-        # started at launch; on the fused path the mosaic merge and the
-        # code sampling too
-        chunks, mosaic = p._launch_chunks(page_dev, offs, bounds)
-        if mosaic is not None:
-            p._finish_page(mosaic, chunks)
-
-    out = {}
-    out["detect_device_ms"], _ = med(detect_device)
-    out["run_detector_ms"], _ = med(lambda: p.run_detector(img))
-    out["line_engine_ms"], det = med(lambda: p.run_line_engine(realistic))
-    out["stream_ms"], (stream, fidx) = med(
-        lambda: p.build_feature_stream(det, realistic.features))
-    out["split_windows_ms"], windows = med(
-        lambda: p.split_windows(stream, p.transformer.dims.max_enc_seq_len))
-    out["decode_ms"], texts = med(lambda: p.decode_windows(stream, windows))
-    out["assemble_ms"], _ = med(
-        lambda: p.assemble(realistic.locations, fidx, windows, texts))
-    # device (kernel) time inside the two device stages
-    out["detect_device_busy_ms"] = device_ms(detect_device, 1)
-    out["decode_device_busy_ms"] = device_ms(
-        lambda: p.decode_windows(stream, windows), 1)
-    out["page_wall_ms"], _ = med(lambda: p(img))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        p(img)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in events) / 1e3
-    attn = [e for e in events if "attention_fwd_kernel" in e.key]
-    out.update(profiled_page_wall_ms=wall, device_busy_ms=busy,
-               device_idle_share=1.0 - busy / out["page_wall_ms"],
-               attention_fwd_kernel_ms=sum(
-                   e.self_device_time_total for e in attn) / 1e3,
-               attention_fwd_kernel_calls=sum(e.count for e in attn))
-    p.readback_bytes.reset()
-    p.run_detector(img)
-    out["readback_bytes_run_detector"] = p.readback_bytes.count
-    p.readback_bytes.reset()
-    p(img)
-    out["readback_bytes_page"] = p.readback_bytes.count
-    return out
-
-
 def phase_main_path():
     """The default config's page OCR (device page merge, device-resident
     glyph features): xl detector + full Transformer, xla and fused
@@ -1213,30 +1141,28 @@ def phase_main_path():
         f"pages a window): outputs equal (text, boxes, lines); ms/page "
         f"{json.dumps(pair)}")
 
-    stages = {}
-    for path, impl in (("default", "xla"), ("default", "fused"),
-                       ("host", "fused")):
+    # one fused page a path: the default path launched the attention
+    # kernel and reads back under half the host path's bytes
+    readback = {}
+    pipe.transformer.set_attn_impl("fused")
+    for path in ("default", "host"):
         use(path)
-        pipe.transformer.set_attn_impl(impl)
-        st = stage_breakdown(pipe, img, realistic[path])
-        stages[(path, impl)] = st
-        log(f"stage breakdown [{path} {impl}] (one page, workers=1): "
-            f"{json.dumps(st)}")
+        attention.launches.reset()
+        pipe.readback_bytes.reset()
+        pipe.run_detector(img)
+        detector_bytes = pipe.readback_bytes.count
+        pipe(img)
+        readback[path] = (detector_bytes,
+                          pipe.readback_bytes.count - detector_bytes)
+        if path == "default" and attention.launches.count <= 0:
+            raise AssertionError("the fused page ran no attention kernel")
     use("default")
-    st = stages[("default", "fused")]
-    calls = st["attention_fwd_kernel_calls"]
-    if calls <= 0:
-        raise AssertionError("the profiled fused page ran no attention kernel")
-    log(f"fused page: the attention forward kernel took "
-        f"{st['attention_fwd_kernel_ms']:.4f} ms of device time in {calls} "
-        f"launches ({st['attention_fwd_kernel_ms'] / calls:.4f} ms a launch) "
-        f"in the profiled page; decode profiled alone: "
-        f"{st['decode_device_busy_ms']:.4f} ms of kernels")
     log(f"readback bytes a page, default / host path: run_detector "
-        f"{st['readback_bytes_run_detector']} / "
-        f"{stages[('host', 'fused')]['readback_bytes_run_detector']}, whole "
-        f"page {st['readback_bytes_page']} / "
-        f"{stages[('host', 'fused')]['readback_bytes_page']}")
+        f"{readback['default'][0]} / {readback['host'][0]}, whole page "
+        f"{readback['default'][1]} / {readback['host'][1]}")
+    if 2 * readback["default"][1] >= readback["host"][1]:
+        raise AssertionError(f"the default path read back {readback} "
+                             f"bytes, not under half the host path's")
     # the decode stage alone, in turns on the same windows
     turns = []
     for impl in ("xla", "fused", "fused", "xla"):

@@ -60,6 +60,7 @@ from ..models.transformer import (Transformer, TransformerDims,
 from ..ops.kernels import LaunchCounter
 from ..ops.peaks import extract_peaks
 from ..parallel import collectives as coll
+from ..utils.profiling import span, spanned
 from ..utils.text import codes_to_text, decode_ruby
 from . import hostops, lineengine
 
@@ -203,8 +204,9 @@ class LazyFeatures:
         return LazyFeatures(self.dev, self.idx[k])
 
     def __array__(self, dtype=None, copy=None):
-        rows = torch.from_numpy(self.idx).to(self.dev.device)
-        out = self.dev[rows].float().cpu().numpy()
+        with span("ocr.wait.readback"):
+            rows = torch.from_numpy(self.idx).to(self.dev.device)
+            out = self.dev[rows].float().cpu().numpy()
         return out.astype(dtype) if dtype is not None else out
 
     def astype(self, dtype):
@@ -248,8 +250,9 @@ class _HostCopy:
         self._event.record(torch.cuda.current_stream(t.device))
 
     def numpy(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
+        with span("ocr.wait.readback"):
+            if self._event is not None:
+                self._event.synchronize()
         return self._host.numpy()
 
 
@@ -665,7 +668,11 @@ class OCRPipeline:
         return padx, pady, offs, bounds
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        """``arr`` on the device. From pageable memory the copy blocks the
+        host until the work queued before it on the stream has run."""
+        host = torch.from_numpy(np.ascontiguousarray(arr))
+        with span("ocr.wait.upload"):
+            return host.to(self.device)
 
     def _readback(self, t: torch.Tensor) -> _HostCopy:
         """Start the device-to-host copy of ``t`` (counted in
@@ -742,23 +749,31 @@ class OCRPipeline:
         return chunks, mosaic
 
     @torch.inference_mode()
+    @spanned("ocr.detect")
     def run_detector(self, img: np.ndarray,
                      twopass: bool = False) -> DetectedPage:
+        """Detections of a page: tiles through the detector and the peaks
+        on the device, then on the host the peaks unpacked into locations
+        and the box filter. Spans: ``ocr.detect.prepare`` (the page made
+        uint8, padded and uploaded), ``ocr.detect.launch`` (each chunk's
+        detector, peaks, merge and readback starts), ``ocr.detect.peaks``
+        (readbacks waited for and unpacked), ``ocr.filter``."""
         ic = self.cfg.inference
         tile = ic.tile_size
         step = int(tile * ic.stride_ratio)
         fused, lazy = self._fused_merge, self._lazy_features
 
-        if img.dtype != np.uint8:
-            # accept [0,1] and 0..255 float pages; NaN maps to 0
-            img = np.nan_to_num(np.asarray(img, np.float32))
-            scale = 255.0 if img.max(initial=0.0) <= 1.0 else 1.0
-            img = np.clip(np.round(img * scale), 0, 255).astype(np.uint8)
+        with span("ocr.detect.prepare"):
+            if img.dtype != np.uint8:
+                # accept [0,1] and 0..255 float pages; NaN maps to 0
+                img = np.nan_to_num(np.asarray(img, np.float32))
+                scale = 255.0 if img.max(initial=0.0) <= 1.0 else 1.0
+                img = np.clip(np.round(img * scale), 0, 255).astype(np.uint8)
 
-        padx, pady, offs, bounds = self.tile_grid(img.shape[0],
-                                                  img.shape[1])
-        img = np.pad(img, [[0, pady], [0, padx], [0, 0]],
-                     constant_values=255)
+            padx, pady, offs, bounds = self.tile_grid(img.shape[0],
+                                                      img.shape[1])
+            img = np.pad(img, [[0, pady], [0, padx], [0, 0]],
+                         constant_values=255)
         H, W = img.shape[:2]
 
         # device features: the per-chunk f16 buffers are kept and glyph rows
@@ -771,40 +786,45 @@ class OCRPipeline:
         # before dedup
         pre_locs, pre_feats = [], []
         if twopass and (W / step > 2 or H / step > 2):
-            s = max(W, H) / tile
-            from PIL import Image as PILImage
-            im1 = np.asarray(PILImage.fromarray(img).resize(
-                (int(W / s), int(H / s)), PILImage.Resampling.BILINEAR))
-            p1x = max(0, tile - im1.shape[1])
-            p1y = max(0, tile - im1.shape[0])
-            im1 = np.pad(im1, [[0, p1y], [0, p1x], [0, 0]],
-                         constant_values=255)
-            B1 = self._chunk_sizes(1)[0]
-            ms1 = tile // SCALE
-            bounds1 = [(0, ms1, 0, ms1)] + [(0, 0, 0, 0)] * (B1 - 1)
-            packed1, feat1, _ = self._detect_chunk(
-                self._upload(im1), [(0, 0)] * B1, bounds1)
-            peaks = self._fetch_peaks(
-                self._readback(packed1),
-                None if lazy else self._readback(feat1))
-            if lazy:
-                featbufs.append(feat1)
-                feat_base = feat1.shape[0] * feat1.shape[1]
-            for pi in np.where(peaks["valid"][0])[0]:
-                w0 = float(peaks["w"][0, pi]) * s
-                h0 = float(peaks["h"][0, pi]) * s
-                if w0 <= 0 or h0 <= 0 or w0 > W or h0 > H:
-                    continue
-                ix = int(peaks["x"][0, pi]) * SCALE * s
-                iy = int(peaks["y"][0, pi]) * SCALE * s
-                if ix >= W or iy >= H:   # padded blank region of im1
-                    continue
-                pre_locs.append(np.array(
-                    [peaks["score"][0, pi], ix, iy, w0, h0,
-                     *peaks["codes"][0, pi]], np.float32))
-                # device features: the row of tile 0 of the pre-pass buffer
-                pre_feats.append(int(pi) if lazy
-                                 else peaks["feature"][0, pi])
+            with span("ocr.detect.prepare"):
+                s = max(W, H) / tile
+                from PIL import Image as PILImage
+                im1 = np.asarray(PILImage.fromarray(img).resize(
+                    (int(W / s), int(H / s)), PILImage.Resampling.BILINEAR))
+                p1x = max(0, tile - im1.shape[1])
+                p1y = max(0, tile - im1.shape[0])
+                im1 = np.pad(im1, [[0, p1y], [0, p1x], [0, 0]],
+                             constant_values=255)
+                B1 = self._chunk_sizes(1)[0]
+                ms1 = tile // SCALE
+                bounds1 = [(0, ms1, 0, ms1)] + [(0, 0, 0, 0)] * (B1 - 1)
+                im1_dev = self._upload(im1)
+            with span("ocr.detect.launch"):
+                packed1, feat1, _ = self._detect_chunk(
+                    im1_dev, [(0, 0)] * B1, bounds1)
+                packed1_host = self._readback(packed1)
+                feat1_host = None if lazy else self._readback(feat1)
+            with span("ocr.detect.peaks"):
+                peaks = self._fetch_peaks(packed1_host, feat1_host)
+                if lazy:
+                    featbufs.append(feat1)
+                    feat_base = feat1.shape[0] * feat1.shape[1]
+                for pi in np.where(peaks["valid"][0])[0]:
+                    w0 = float(peaks["w"][0, pi]) * s
+                    h0 = float(peaks["h"][0, pi]) * s
+                    if w0 <= 0 or h0 <= 0 or w0 > W or h0 > H:
+                        continue
+                    ix = int(peaks["x"][0, pi]) * SCALE * s
+                    iy = int(peaks["y"][0, pi]) * SCALE * s
+                    if ix >= W or iy >= H:   # padded blank region of im1
+                        continue
+                    pre_locs.append(np.array(
+                        [peaks["score"][0, pi], ix, iy, w0, h0,
+                         *peaks["codes"][0, pi]], np.float32))
+                    # device features: the row of tile 0 of the pre-pass
+                    # buffer
+                    pre_feats.append(int(pi) if lazy
+                                     else peaks["feature"][0, pi])
         mh, mw = H // SCALE, W // SCALE
         ms = tile // SCALE
 
@@ -818,98 +838,109 @@ class OCRPipeline:
         # the page uploads once (one channel when the page is grayscale in
         # RGB, as book scans are) and tiles are cut on the device; every
         # chunk is launched before the first readback is waited for
-        gray = bool((img[..., 0] == img[..., 1]).all()
-                    and (img[..., 0] == img[..., 2]).all())
-        chunks, mosaic = self._launch_chunks(
-            self._upload(img[..., 0] if gray else img), offs, bounds)
-
+        with span("ocr.detect.prepare"):
+            gray = bool((img[..., 0] == img[..., 1]).all()
+                        and (img[..., 0] == img[..., 2]).all())
+            page_dev = self._upload(img[..., 0] if gray else img)
         codes_all = None
-        chunk_codes: List[Optional[_HostCopy]] = [None] * len(chunks)
-        if fused:
-            # the code mosaic stays on the device unless the two-pass
-            # pre-detections need it below
-            sampled, planes = self._finish_page(mosaic, chunks)
-            chunk_codes = [self._readback(c) for c in sampled]
-            planes = _dequantize(self._readback(planes).numpy())
-            lines_all = np.ascontiguousarray(planes[..., 0])
-            seps_all = np.ascontiguousarray(planes[..., 1])
-        else:
-            lines_all = np.zeros((mh, mw), np.float32)
-            seps_all = np.zeros((mh, mw), np.float32)
-            codes_all = np.zeros((mh, mw, 4), np.float32)
+        with span("ocr.detect.launch"):
+            chunks, mosaic = self._launch_chunks(page_dev, offs, bounds)
+            chunk_codes: List[Optional[_HostCopy]] = [None] * len(chunks)
+            if fused:
+                # the code mosaic stays on the device unless the two-pass
+                # pre-detections need it below
+                sampled, planes = self._finish_page(mosaic, chunks)
+                chunk_codes = [self._readback(c) for c in sampled]
+                planes_host = self._readback(planes)
+        with span("ocr.detect.peaks"):
+            if fused:
+                planes = _dequantize(planes_host.numpy())
+                lines_all = np.ascontiguousarray(planes[..., 0])
+                seps_all = np.ascontiguousarray(planes[..., 1])
+            else:
+                lines_all = np.zeros((mh, mw), np.float32)
+                seps_all = np.zeros((mh, mw), np.float32)
+                codes_all = np.zeros((mh, mw, 4), np.float32)
 
         for c, cds in zip(chunks, chunk_codes):
-            n = c.n
-            peaks = self._fetch_peaks(c.packed_host, c.feat_host)
-            if cds is not None:
-                peaks["codes"] = np.maximum(peaks["codes"],
-                                            _dequantize(cds.numpy()))
-            else:
-                maps = _dequantize(c.maps_host.numpy())
-                for bi in range(n):
-                    x, y = offs[c.i0 + bi]
-                    xs, ys = x // SCALE, y // SCALE
-                    sl = np.s_[ys:ys + ms, xs:xs + ms]
-                    # maps arrive pre-masked by the ownership region
-                    np.maximum(lines_all[sl], maps[bi, ..., 0],
-                               out=lines_all[sl])
-                    np.maximum(seps_all[sl], maps[bi, ..., 1],
-                               out=seps_all[sl])
-                    np.maximum(codes_all[sl], maps[bi, ..., 2:6],
-                               out=codes_all[sl])
-
-            # row-major over (tile, peak): the per-tile, per-peak order
-            offc = np.asarray(offs[c.i0:c.i0 + n], np.int64)
-            w = peaks["w"][:n]
-            h = peaks["h"][:n]
-            ok = (peaks["valid"][:n] & (w > 0) & (h > 0)
-                  & (w <= W) & (h <= H))
-            if ok.any():
-                ix = (peaks["x"][:n].astype(np.int64) * SCALE
-                      + offc[:, 0:1])
-                iy = (peaks["y"][:n].astype(np.int64) * SCALE
-                      + offc[:, 1:2])
-                rows = np.concatenate([
-                    peaks["score"][:n][..., None],
-                    ix[..., None].astype(np.float32),
-                    iy[..., None].astype(np.float32),
-                    w[..., None], h[..., None],
-                    peaks["codes"][:n],
-                ], axis=-1).astype(np.float32)
-                locations.append(rows[ok])
-                if lazy:
-                    # np.nonzero is row-major over (tile, peak), the order
-                    # rows[ok] flattens in
-                    ti, pk = np.nonzero(ok)
-                    glyphfeats.append(feat_base + ti * c.feat.shape[1] + pk)
+            with span("ocr.detect.peaks"):
+                n = c.n
+                peaks = self._fetch_peaks(c.packed_host, c.feat_host)
+                if cds is not None:
+                    peaks["codes"] = np.maximum(peaks["codes"],
+                                                _dequantize(cds.numpy()))
                 else:
-                    glyphfeats.append(peaks["feature"][:n][ok])
-            if lazy:
-                featbufs.append(c.feat)
-                feat_base += c.feat.shape[0] * c.feat.shape[1]
+                    maps = _dequantize(c.maps_host.numpy())
+                    for bi in range(n):
+                        x, y = offs[c.i0 + bi]
+                        xs, ys = x // SCALE, y // SCALE
+                        sl = np.s_[ys:ys + ms, xs:xs + ms]
+                        # maps arrive pre-masked by the ownership region
+                        np.maximum(lines_all[sl], maps[bi, ..., 0],
+                                   out=lines_all[sl])
+                        np.maximum(seps_all[sl], maps[bi, ..., 1],
+                                   out=seps_all[sl])
+                        np.maximum(codes_all[sl], maps[bi, ..., 2:6],
+                                   out=codes_all[sl])
+
+                # row-major over (tile, peak): the per-tile, per-peak order
+                offc = np.asarray(offs[c.i0:c.i0 + n], np.int64)
+                w = peaks["w"][:n]
+                h = peaks["h"][:n]
+                ok = (peaks["valid"][:n] & (w > 0) & (h > 0)
+                      & (w <= W) & (h <= H))
+                if ok.any():
+                    ix = (peaks["x"][:n].astype(np.int64) * SCALE
+                          + offc[:, 0:1])
+                    iy = (peaks["y"][:n].astype(np.int64) * SCALE
+                          + offc[:, 1:2])
+                    rows = np.concatenate([
+                        peaks["score"][:n][..., None],
+                        ix[..., None].astype(np.float32),
+                        iy[..., None].astype(np.float32),
+                        w[..., None], h[..., None],
+                        peaks["codes"][:n],
+                    ], axis=-1).astype(np.float32)
+                    locations.append(rows[ok])
+                    if lazy:
+                        # np.nonzero is row-major over (tile, peak), the
+                        # order rows[ok] flattens in
+                        ti, pk = np.nonzero(ok)
+                        glyphfeats.append(feat_base + ti * c.feat.shape[1]
+                                          + pk)
+                    else:
+                        glyphfeats.append(peaks["feature"][:n][ok])
+                if lazy:
+                    featbufs.append(c.feat)
+                    feat_base += c.feat.shape[0] * c.feat.shape[1]
 
         if not locations or not sum(len(a) for a in locations):
             return DetectedPage(np.zeros((0, 9), np.float32),
                                 np.zeros((0, FEATURE_DIM), np.float32),
                                 lines_all, seps_all)
-        loc = np.concatenate(locations).astype(np.float32)
         if lazy:
-            feats = LazyFeatures(
-                torch.cat([b.reshape(-1, b.shape[-1]) for b in featbufs]),
-                np.concatenate(glyphfeats))
-        else:
-            feats = np.concatenate(glyphfeats).astype(np.float32)
-        if fused and pre_locs:
-            # the two-pass pre-detections were not sampled on the device:
-            # read the code mosaic back and sample them on the host
-            cm = _dequantize(self._readback(
-                mosaic[..., 2:6].contiguous()).numpy())
-            loc[:len(pre_locs)] = self._sample_codes_host(
-                cm, loc[:len(pre_locs)])
+            with span("ocr.detect.launch"):
+                featdev = torch.cat([b.reshape(-1, b.shape[-1])
+                                     for b in featbufs])
+        with span("ocr.detect.peaks"):
+            loc = np.concatenate(locations).astype(np.float32)
+            if lazy:
+                feats = LazyFeatures(featdev, np.concatenate(glyphfeats))
+            else:
+                feats = np.concatenate(glyphfeats).astype(np.float32)
+            if fused and pre_locs:
+                # the two-pass pre-detections were not sampled on the
+                # device: read the code mosaic back and sample them on the
+                # host
+                cm = _dequantize(self._readback(
+                    mosaic[..., 2:6].contiguous()).numpy())
+                loc[:len(pre_locs)] = self._sample_codes_host(
+                    cm, loc[:len(pre_locs)])
         loc, feats = self._filter_boxes(loc, feats, img, lines_all, seps_all,
                                         codes_all)
         return DetectedPage(loc, feats, lines_all, seps_all)
 
+    @spanned("ocr.filter")
     def _filter_boxes(self, loc, feats, img, lines_all, seps_all, codes_all):
         ic = self.cfg.inference
         H, W = img.shape[:2]
@@ -987,6 +1018,7 @@ class OCRPipeline:
     # stage 2: reading order
     # ------------------------------------------------------------------
 
+    @spanned("ocr.line_engine")
     def run_line_engine(self, page: DetectedPage) -> np.ndarray:
         le = self.cfg.line_engine
         params = {
@@ -1169,6 +1201,7 @@ class OCRPipeline:
         return out
 
     @torch.inference_mode()
+    @spanned("ocr.decode")
     def decode_windows(self, features: np.ndarray,
                        windows: List[Tuple[int, int, int, int]]
                        ) -> List[str]:
@@ -1184,7 +1217,10 @@ class OCRPipeline:
         bucket that holds its content plus the estimated ruby expansion
         (capped at the encoder length), groups in ascending length; the
         live model decodes ``dec_len=s_len`` below the production length
-        (a ``decode_fn`` hook always decodes at its own length)."""
+        (a ``decode_fn`` hook always decodes at its own length).
+
+        Spans: ``ocr.decode.prepare`` (a batch made on the host, uploaded
+        and gathered), then the decode's own (``mask_predict_fns``)."""
         if not windows:
             return []
         gidx = getattr(features, "glyph_idx", None)
@@ -1221,30 +1257,31 @@ class OCRPipeline:
         for s_len, idxs in sorted(groups.items()):
             for c0 in range(0, len(idxs), cap):
                 chunk = idxs[c0:c0 + cap]
-                cn = len(chunk)
-                bucket = self._min_bucket     # the mesh data axis, else 1
-                while bucket < cn:
-                    bucket *= 2
-                batch = np.zeros((bucket, s_len, enc_dim), np.float32)
-                idxb = np.full((bucket, s_len), -1, np.int32)
-                for bi, wi in enumerate(chunk):
-                    _, ci, cj, _ = windows[wi]
-                    batch[bi, 0] = sp
-                    batch[bi, 1:1 + cj - ci] = features[ci:cj]
-                    batch[bi, 1 + cj - ci] = -sp
+                with span("ocr.decode.prepare"):
+                    cn = len(chunk)
+                    bucket = self._min_bucket  # the mesh data axis, else 1
+                    while bucket < cn:
+                        bucket *= 2
+                    batch = np.zeros((bucket, s_len, enc_dim), np.float32)
+                    idxb = np.full((bucket, s_len), -1, np.int32)
+                    for bi, wi in enumerate(chunk):
+                        _, ci, cj, _ = windows[wi]
+                        batch[bi, 0] = sp
+                        batch[bi, 1:1 + cj - ci] = features[ci:cj]
+                        batch[bi, 1 + cj - ci] = -sp
+                        if lazy:
+                            idxb[bi, 1:1 + cj - ci] = gidx[ci:cj]
+                    # padding rows copy the first window: a fully-masked
+                    # encoder row would NaN its attention and defeat the
+                    # early exit
+                    batch[cn:] = batch[0]
+                    idxb[cn:] = idxb[0]
+                    # under a mesh this rank decodes its rows of the bucket
+                    rows = self._my_rows(bucket)
+                    enc = self._upload(batch[rows])
                     if lazy:
-                        idxb[bi, 1:1 + cj - ci] = gidx[ci:cj]
-                # padding rows copy the first window: a fully-masked
-                # encoder row would NaN its attention and defeat the early
-                # exit
-                batch[cn:] = batch[0]
-                idxb[cn:] = idxb[0]
-                # under a mesh this rank decodes its rows of the bucket
-                rows = self._my_rows(bucket)
-                enc = self._upload(batch[rows])
-                if lazy:
-                    enc = self._gather_features(enc, features.glyph_dev,
-                                                self._upload(idxb[rows]))
+                        enc = self._gather_features(
+                            enc, features.glyph_dev, self._upload(idxb[rows]))
                 if self._live_decode and s_len < dims.max_dec_seq_len:
                     chunk_codes, _ = self._decode(enc, dec_len=s_len)
                 else:
@@ -1276,6 +1313,7 @@ class OCRPipeline:
     # stage 4: assembly
     # ------------------------------------------------------------------
 
+    @spanned("ocr.assemble")
     def assemble(self, locations, feature_idx, windows, texts,
                  resize: float = 1.0) -> Dict:
         outdict = {"box": [], "line": [], "block": [], "text": ""}
@@ -1375,9 +1413,12 @@ class OCRPipeline:
     # while the detector still runs in full). None: no-op.
     detections_hook = None
 
+    @spanned("ocr.page")
     def __call__(self, image: np.ndarray, resize: float = 1.0,
                  twopass: bool = False) -> Dict:
-        """Full OCR of an RGB uint8 page image."""
+        """Full OCR of an RGB uint8 page image. Under a profiler its stages
+        show as ``ocr.*`` spans nested in the page's ``ocr.page`` on the
+        thread that ran it (``utils.profiling``)."""
         if resize != 1.0:
             from PIL import Image as PILImage
             pim = PILImage.fromarray(image)
@@ -1392,11 +1433,12 @@ class OCRPipeline:
             return {"box": [], "line": [], "block": [], "text": "",
                     "aozora": "", "noruby": ""}
         detected = self.run_line_engine(page)
-        features, feature_idx = self.build_feature_stream(
-            detected, page.features)
-        windows = self.split_windows(
-            features, self.transformer.dims.max_enc_seq_len,
-            self.cfg.inference.max_windows_per_page)
+        with span("ocr.stream"):
+            features, feature_idx = self.build_feature_stream(
+                detected, page.features)
+            windows = self.split_windows(
+                features, self.transformer.dims.max_enc_seq_len,
+                self.cfg.inference.max_windows_per_page)
         texts = self.decode_windows(features, windows)
         return self.assemble(page.locations, feature_idx, windows, texts,
                              resize)

@@ -56,6 +56,7 @@ from ..const import (
 )
 from ..ops import attention
 from ..parallel import collectives as coll
+from ..utils.profiling import span
 
 LN_EPS = 1e-6
 
@@ -549,34 +550,44 @@ def mask_predict_fns(encode_fn, decode_probs_fn, enc_input: torch.Tensor,
     ``from_exported``; the reference's ``process_ocr_onnx.py:27-72``) and
     :func:`mask_predict` itself. ``dec_input`` reaches ``decode_probs_fn``
     as int32.
+
+    Spans (``utils.profiling``): ``ocr.decode.encode`` (the encoder and the
+    context), one ``ocr.decode.round`` a round, and in each the
+    ``ocr.wait.round`` in which the host reads whether every window is
+    done.
     """
-    key_mask = make_key_mask(enc_input)
-    ctx = encode_fn(enc_input)
-    if prepare_fn is not None:
-        ctx = prepare_fn(ctx)
-    b, dev = enc_input.shape[0], enc_input.device
-    dec_input = torch.full((b, dec_len), DECODER_MSK, dtype=torch.int32,
-                           device=dev)
-    code_out = torch.zeros((b, dec_len), dtype=torch.int32, device=dev)
-    p_out = torch.zeros((b, dec_len), dtype=torch.float32, device=dev)
-    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    with span("ocr.decode.encode"):
+        key_mask = make_key_mask(enc_input)
+        ctx = encode_fn(enc_input)
+        if prepare_fn is not None:
+            ctx = prepare_fn(ctx)
+        b, dev = enc_input.shape[0], enc_input.device
+        dec_input = torch.full((b, dec_len), DECODER_MSK, dtype=torch.int32,
+                               device=dev)
+        code_out = torch.zeros((b, dec_len), dtype=torch.int32, device=dev)
+        p_out = torch.zeros((b, dec_len), dtype=torch.float32, device=dev)
+        done = torch.zeros((b,), dtype=torch.bool, device=dev)
     for _ in range(max_rounds):
-        probs = decode_probs_fn(dec_input, ctx, key_mask)
-        code, p = crt_combine_topk_probs(probs, topk)
-        code = code.to(torch.int32)
-        invalid = p <= 0.0
-        newly = (dec_input == DECODER_MSK) & (code > 0)
-        all_conf = torch.where(newly, p > early_stop_threshold,
-                               torch.ones_like(newly)).all(dim=1)
-        remask = (p < remask_threshold) | invalid
-        round_done = all_conf | ~remask.any(dim=1)
-        keep = done[:, None]
-        code_out = torch.where(keep, code_out, code)
-        p_out = torch.where(keep, p_out, p)
-        dec_input = torch.where(
-            keep, dec_input,
-            torch.where(remask, torch.full_like(code, DECODER_MSK), code))
-        done = done | round_done
-        if bool(done.all()):
+        with span("ocr.decode.round"):
+            probs = decode_probs_fn(dec_input, ctx, key_mask)
+            code, p = crt_combine_topk_probs(probs, topk)
+            code = code.to(torch.int32)
+            invalid = p <= 0.0
+            newly = (dec_input == DECODER_MSK) & (code > 0)
+            all_conf = torch.where(newly, p > early_stop_threshold,
+                                   torch.ones_like(newly)).all(dim=1)
+            remask = (p < remask_threshold) | invalid
+            round_done = all_conf | ~remask.any(dim=1)
+            keep = done[:, None]
+            code_out = torch.where(keep, code_out, code)
+            p_out = torch.where(keep, p_out, p)
+            dec_input = torch.where(
+                keep, dec_input,
+                torch.where(remask, torch.full_like(code, DECODER_MSK), code))
+            done = done | round_done
+            all_done = done.all()
+            with span("ocr.wait.round"):
+                stop = bool(all_done)
+        if stop:
             break
     return code_out, p_out
