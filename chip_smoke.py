@@ -1193,6 +1193,26 @@ def bucket_stream(feats, fdim: int, device="cuda"):
     return stream
 
 
+@contextlib.contextmanager
+def eager_decode(pipe):
+    """The pipeline's live decode without its CUDA graphs, so that each
+    attention call passes through Python (a replay does not)."""
+    import functools
+
+    from findtextcenternet_tpu_torch.models.transformer import mask_predict
+
+    mp = pipe.cfg.mask_predict
+    saved = pipe._decode
+    pipe._decode = functools.partial(
+        mask_predict, pipe.transformer, max_rounds=mp.max_rounds,
+        topk=mp.topk, remask_threshold=mp.remask_threshold,
+        early_stop_threshold=mp.early_stop_threshold)
+    try:
+        yield
+    finally:
+        pipe._decode = saved
+
+
 def attention_calls(fn):
     """Run ``fn`` with the attention wrapper's inputs recorded: the first
     masked and the first unmasked call of every (B, Tq, Tk) shape, cloned,
@@ -1350,7 +1370,8 @@ def bucketed_page(pipe, cfg) -> dict:
         if any(v["attention_fwd_launches"] <= 0 for v in per_len.values()):
             raise AssertionError("a bucket length did not reach the "
                                  "attention kernel")
-        calls = attention_calls(lambda: decode(windows, True, "fused"))
+        with eager_decode(pipe):
+            calls = attention_calls(lambda: decode(windows, True, "fused"))
         log(f"bucketed page: attention calls by (B, Tq, Tk), masked: "
             f"{sorted(calls)}")
         rows = bucket_rows(calls, per_len)
@@ -2351,8 +2372,9 @@ def phase_weights_loop(det_ckpt: str, tf_ckpt: str):
                 return fn(*a, **k)
             return call
 
-        p.transformer.encode = counted(p.transformer.encode,
-                                       dims.enc_block_num)
+        # the encoder's sites once a decode call (its graph replays it)
+        decode = p._decode
+        p._decode = counted(decode, dims.enc_block_num)
         p.transformer.decode_cached = counted(p.transformer.decode_cached,
                                               2 * dims.dec_block_num)
         p(img)                                           # warm-up
@@ -2370,7 +2392,8 @@ def phase_weights_loop(det_ckpt: str, tf_ckpt: str):
                             "attention_fwd": attention.launches.count,
                             "attention_sites": sites["n"]}
         page_ms[name] = ts
-        del p.transformer.encode, p.transformer.decode_cached
+        p._decode = decode
+        del p.transformer.decode_cached
     del direct
     if served["from_files"] != served["direct"]:
         raise AssertionError("the page served from model.pt / model3.pt "

@@ -54,9 +54,9 @@ from ..const import FEATURE_DIM, MAX_ENCODER_LEN, MODULO_LIST, SCALE
 from ..device import resolve_device
 from ..models.detector import CenterNetDetection, SimpleDecoder
 from ..models.init import init_flax_defaults_
-from ..models.transformer import (Transformer, TransformerDims,
-                                  make_key_mask, mask_predict,
-                                  mask_predict_fns)
+from ..models.transformer import (DecodeGraphs, Transformer,
+                                  TransformerDims, make_key_mask,
+                                  mask_predict, mask_predict_fns)
 from ..ops.kernels import LaunchCounter
 from ..ops.peaks import extract_peaks
 from ..parallel import collectives as coll
@@ -311,6 +311,15 @@ class OCRPipeline:
         ``feature_gathers`` (decode batches gathered on the device) and
         ``readback_bytes`` (device-to-host bytes of the page path) count
         what the device path did.
+
+        The live decode on a CUDA device replays captured CUDA graphs
+        (``models.transformer.DecodeGraphs``: a slot of three graphs for
+        each batch, length, dtype and attention route, one for each
+        concurrent caller, captured at its first use); the CPU and the
+        ``decode_fn`` hooks decode eagerly. ``decode_graph_captures``
+        counts the slots captured, ``decode_graph_replays`` the rounds
+        replayed and ``decode_eager_rounds`` the rounds run eagerly (by the
+        live model or an artifact's decode).
         """
         ic = config.inference
         self.cfg = config
@@ -357,16 +366,25 @@ class OCRPipeline:
         mp = config.mask_predict
         self._apply_fn = detector_apply or self.detector
         self._live_decode = decode_fn is None
-        self._decode = decode_fn or functools.partial(
-            mask_predict, self.transformer, max_rounds=mp.max_rounds,
-            topk=mp.topk, remask_threshold=mp.remask_threshold,
-            early_stop_threshold=mp.early_stop_threshold)
         # the CRT auxiliary classifier of a ``model.pt`` that has one
         # (:meth:`from_torch_checkpoints`), for per-box decoding in tools
         self.simple_decoder: Optional[SimpleDecoder] = None
         self.mosaic_merges = LaunchCounter("mosaic_merges")
         self.feature_gathers = LaunchCounter("feature_gathers")
         self.readback_bytes = LaunchCounter("readback_bytes")
+        self.decode_graph_captures = LaunchCounter("decode_graph_captures")
+        self.decode_graph_replays = LaunchCounter("decode_graph_replays")
+        self.decode_eager_rounds = getattr(
+            decode_fn, "eager_rounds", None) or LaunchCounter(
+                "decode_eager_rounds")
+        self._decode_graphs = None if decode_fn else DecodeGraphs(
+            self.decode_graph_captures, self.decode_graph_replays,
+            self.decode_eager_rounds)
+        self._decode = decode_fn or functools.partial(
+            mask_predict, self.transformer, max_rounds=mp.max_rounds,
+            topk=mp.topk, remask_threshold=mp.remask_threshold,
+            early_stop_threshold=mp.early_stop_threshold,
+            graphs=self._decode_graphs)
 
     @classmethod
     def from_torch_checkpoints(cls, model_pt: str, model3_pt: str,
@@ -500,8 +518,10 @@ class OCRPipeline:
         """``decode_fn`` running :func:`mask_predict_fns` over an
         artifact's ``encode(enc_input)`` and ``decode(dec_input,
         enc_output, key_mask)`` -> per-modulus probabilities, at the
-        production decode length."""
+        production decode length; its rounds count in the pipeline's
+        ``decode_eager_rounds``."""
         mp = config.mask_predict
+        eager_rounds = LaunchCounter("decode_eager_rounds")
 
         def decode_fn(enc_input):
             return mask_predict_fns(
@@ -509,8 +529,11 @@ class OCRPipeline:
                 config.transformer.max_dec_seq_len,
                 max_rounds=mp.max_rounds, topk=mp.topk,
                 remask_threshold=mp.remask_threshold,
-                early_stop_threshold=mp.early_stop_threshold)
+                early_stop_threshold=mp.early_stop_threshold,
+                eager_rounds=eager_rounds)
 
+        # the pipeline's ``decode_eager_rounds``
+        decode_fn.eager_rounds = eager_rounds
         return decode_fn
 
     @property
@@ -1220,7 +1243,8 @@ class OCRPipeline:
         (a ``decode_fn`` hook always decodes at its own length).
 
         Spans: ``ocr.decode.prepare`` (a batch made on the host, uploaded
-        and gathered), then the decode's own (``mask_predict_fns``)."""
+        and gathered), then the decode's own (``mask_predict_fns``, or
+        ``mask_predict_graphed`` where the live decode replays graphs)."""
         if not windows:
             return []
         gidx = getattr(features, "glyph_idx", None)

@@ -37,7 +37,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Sequence, Tuple
+import threading
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -55,6 +56,7 @@ from ..const import (
     MODULO_LIST,
 )
 from ..ops import attention
+from ..ops.kernels import LaunchCounter
 from ..parallel import collectives as coll
 from ..utils.profiling import span
 
@@ -445,6 +447,11 @@ class Transformer(nn.Module):
         return self.decoder.cross_kv(enc_output)
 
     def decode_cached(self, dec_input, kv, key_mask):
+        """The decoder on the cross K/V heads ``kv`` of :meth:`cross_kv`,
+        or, where ``kv`` is a :class:`DecodeSlot`, the slot's decoder graph
+        replayed on ``dec_input`` (``key_mask`` is then the slot's own)."""
+        if isinstance(kv, DecodeSlot):
+            return kv.decode(dec_input)
         return self.decoder.decode_cached(dec_input, kv, key_mask=key_mask)
 
 
@@ -500,12 +507,55 @@ def crt_combine_topk_probs(probs: Sequence[torch.Tensor], topk: int = 3
             torch.gather(prob, -1, best)[..., 0])
 
 
+def softmax_probs(logits: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The per-modulus probabilities of the decoder's residue logits (f32
+    softmax)."""
+    return [torch.softmax(lg.float(), dim=-1) for lg in logits]
+
+
+def initial_state(b: int, dec_len: int, device):
+    """A call's round state before its first round: the decoder input all
+    MSK, no codes or probabilities yet, no window done."""
+    return (torch.full((b, dec_len), DECODER_MSK, dtype=torch.int32,
+                       device=device),
+            torch.zeros((b, dec_len), dtype=torch.int32, device=device),
+            torch.zeros((b, dec_len), dtype=torch.float32, device=device),
+            torch.zeros((b,), dtype=torch.bool, device=device))
+
+
+def round_update(probs, dec_input, code_out, p_out, done, topk: int,
+                 remask_threshold: float, early_stop_threshold: float):
+    """One mask-predict round from the per-modulus probabilities: each
+    position's best CRT code, the round's codes and probabilities kept for
+    the windows not done before it, low-confidence positions remasked, and
+    a window done once every newly decoded position is confident or none
+    is remasked. Returns the new ``(dec_input, code_out, p_out, done)``
+    and ``done.all()`` (a device scalar)."""
+    code, p = crt_combine_topk_probs(probs, topk)
+    code = code.to(torch.int32)
+    invalid = p <= 0.0
+    newly = (dec_input == DECODER_MSK) & (code > 0)
+    all_conf = torch.where(newly, p > early_stop_threshold,
+                           torch.ones_like(newly)).all(dim=1)
+    remask = (p < remask_threshold) | invalid
+    round_done = all_conf | ~remask.any(dim=1)
+    keep = done[:, None]
+    code_out = torch.where(keep, code_out, code)
+    p_out = torch.where(keep, p_out, p)
+    dec_input = torch.where(
+        keep, dec_input,
+        torch.where(remask, torch.full_like(code, DECODER_MSK), code))
+    done = done | round_done
+    return dec_input, code_out, p_out, done, done.all()
+
+
 @torch.no_grad()
 def mask_predict(model: Transformer, enc_input: torch.Tensor,
                  max_rounds: int = 8, topk: int = 3,
                  remask_threshold: float = 0.9,
                  early_stop_threshold: float = 0.99,
-                 dec_len: Optional[int] = None):
+                 dec_len: Optional[int] = None,
+                 graphs: Optional["DecodeGraphs"] = None):
     """Non-autoregressive iterative decode over a batch of windows.
 
     Starts from an all-MSK decoder input and refines up to ``max_rounds``
@@ -515,21 +565,32 @@ def mask_predict(model: Transformer, enc_input: torch.Tensor,
     :func:`mask_predict_fns`, which runs the loop). Runs in eval mode (the
     model's mode is restored after).
 
+    With ``graphs`` (the serving pipeline's :class:`DecodeGraphs`) the call
+    replays captured CUDA graphs where :meth:`DecodeGraphs.engages` says
+    so (:func:`mask_predict_graphed`, the same codes and probabilities)
+    and otherwise counts its rounds in ``graphs.eager_rounds``.
+
     Returns ``(codes[B, dec_len] int32, probs[B, dec_len] f32)``.
     """
+    dec_len = dec_len or model.dims.max_dec_seq_len
+    kw = dict(max_rounds=max_rounds, topk=topk,
+              remask_threshold=remask_threshold,
+              early_stop_threshold=early_stop_threshold)
+    if graphs is not None and graphs.engages(model, enc_input):
+        return mask_predict_graphed(model, graphs, enc_input, dec_len, **kw)
+
     def decode_probs(dec_input, kv, key_mask):
-        logits = model.decode_cached(dec_input.long(), kv, key_mask)
-        return [torch.softmax(lg.float(), dim=-1) for lg in logits]
+        return softmax_probs(
+            model.decode_cached(dec_input.long(), kv, key_mask))
 
     was_training = model.training
     model.eval()
     try:
         return mask_predict_fns(
-            model.encode, decode_probs, enc_input,
-            dec_len or model.dims.max_dec_seq_len, max_rounds=max_rounds,
-            topk=topk, remask_threshold=remask_threshold,
-            early_stop_threshold=early_stop_threshold,
-            prepare_fn=model.cross_kv)
+            model.encode, decode_probs, enc_input, dec_len,
+            prepare_fn=model.cross_kv,
+            eager_rounds=None if graphs is None else graphs.eager_rounds,
+            **kw)
     finally:
         model.train(was_training)
 
@@ -538,7 +599,8 @@ def mask_predict(model: Transformer, enc_input: torch.Tensor,
 def mask_predict_fns(encode_fn, decode_probs_fn, enc_input: torch.Tensor,
                      dec_len: int, max_rounds: int = 8, topk: int = 3,
                      remask_threshold: float = 0.9,
-                     early_stop_threshold: float = 0.99, prepare_fn=None):
+                     early_stop_threshold: float = 0.99, prepare_fn=None,
+                     eager_rounds: Optional[LaunchCounter] = None):
     """:func:`mask_predict` over opaque encode/decode callables.
 
     ``encode_fn(enc_input) -> enc_output``; ``decode_probs_fn(dec_input,
@@ -549,7 +611,7 @@ def mask_predict_fns(encode_fn, decode_probs_fn, enc_input: torch.Tensor,
     deployment artifacts (``OCRPipeline.from_onnx`` / ``from_coreml`` /
     ``from_exported``; the reference's ``process_ocr_onnx.py:27-72``) and
     :func:`mask_predict` itself. ``dec_input`` reaches ``decode_probs_fn``
-    as int32.
+    as int32. Each round adds one to ``eager_rounds`` when given.
 
     Spans (``utils.profiling``): ``ocr.decode.encode`` (the encoder and the
     context), one ``ocr.decode.round`` a round, and in each the
@@ -561,33 +623,247 @@ def mask_predict_fns(encode_fn, decode_probs_fn, enc_input: torch.Tensor,
         ctx = encode_fn(enc_input)
         if prepare_fn is not None:
             ctx = prepare_fn(ctx)
-        b, dev = enc_input.shape[0], enc_input.device
-        dec_input = torch.full((b, dec_len), DECODER_MSK, dtype=torch.int32,
-                               device=dev)
-        code_out = torch.zeros((b, dec_len), dtype=torch.int32, device=dev)
-        p_out = torch.zeros((b, dec_len), dtype=torch.float32, device=dev)
-        done = torch.zeros((b,), dtype=torch.bool, device=dev)
+        dec_input, code_out, p_out, done = initial_state(
+            enc_input.shape[0], dec_len, enc_input.device)
     for _ in range(max_rounds):
         with span("ocr.decode.round"):
             probs = decode_probs_fn(dec_input, ctx, key_mask)
-            code, p = crt_combine_topk_probs(probs, topk)
-            code = code.to(torch.int32)
-            invalid = p <= 0.0
-            newly = (dec_input == DECODER_MSK) & (code > 0)
-            all_conf = torch.where(newly, p > early_stop_threshold,
-                                   torch.ones_like(newly)).all(dim=1)
-            remask = (p < remask_threshold) | invalid
-            round_done = all_conf | ~remask.any(dim=1)
-            keep = done[:, None]
-            code_out = torch.where(keep, code_out, code)
-            p_out = torch.where(keep, p_out, p)
-            dec_input = torch.where(
-                keep, dec_input,
-                torch.where(remask, torch.full_like(code, DECODER_MSK), code))
-            done = done | round_done
-            all_done = done.all()
+            dec_input, code_out, p_out, done, all_done = round_update(
+                probs, dec_input, code_out, p_out, done, topk,
+                remask_threshold, early_stop_threshold)
+            if eager_rounds is not None:
+                eager_rounds.add()
             with span("ocr.wait.round"):
                 stop = bool(all_done)
         if stop:
             break
     return code_out, p_out
+
+
+# ---------------------------------------------------------------------------
+# Mask-predict as captured CUDA graphs (the serving pipeline's live model)
+# ---------------------------------------------------------------------------
+
+class DecodeSlot:
+    """One key's three CUDA graphs and the static buffers they share.
+
+    * the encode graph: the key mask, the encoder, the cross K/V of every
+      decoder block and the round state's initial fill, from the static
+      ``enc_input``;
+    * the decoder graph: one round's cached decoder (embeddings, blocks,
+      output layers) on the static ``dec_input``, into ``logits``;
+    * the update graph: the round's softmax and :func:`round_update`,
+      written back into the state (``dec_input``, ``code_out``, ``p_out``,
+      ``done``) and ``all_done``.
+
+    The three bodies are the eager path's functions, captured on
+    ``stream`` into one memory pool after one eager run of each there (the
+    warm-up a capture needs), in ``"thread_local"`` capture mode, so that
+    other threads keep launching meanwhile. A replay runs on the caller's
+    current stream. The attention kernel's launch counter
+    (``ops.attention.launches``) counts each replay's launches, and not
+    the capture's.
+    """
+
+    def __init__(self, model: Transformer, key: tuple,
+                 enc_input: torch.Tensor, dec_len: int, topk: int,
+                 remask_threshold: float, early_stop_threshold: float):
+        self.model, self.key, self.dec_len = model, key, dec_len
+        self.update_args = (topk, remask_threshold, early_stop_threshold)
+        self.enc_input = enc_input.clone()
+        # recorded where the slot is given back: the next caller's stream
+        # waits on it, so no replay overwrites a result still being read
+        self._released = None
+        self._graphs: List[torch.cuda.CUDAGraph] = []
+        self._launches: List[int] = []
+
+    def _encode_body(self):
+        m, x = self.model, self.enc_input
+        self.key_mask = make_key_mask(x)
+        self.kv = m.cross_kv(m.encode(x))
+        self.dec_input, self.code_out, self.p_out, self.done = \
+            initial_state(x.shape[0], self.dec_len, x.device)
+
+    def _decoder_body(self):
+        self.logits = self.model.decoder.decode_cached(
+            self.dec_input.long(), self.kv, key_mask=self.key_mask)
+
+    def _update_body(self):
+        new = round_update(softmax_probs(self.logits), self.dec_input,
+                           self.code_out, self.p_out, self.done,
+                           *self.update_args)
+        for dst, src in zip((self.dec_input, self.code_out, self.p_out,
+                             self.done), new):
+            dst.copy_(src)
+        self.all_done = new[4]
+
+    def capture(self, stream: torch.cuda.Stream) -> "DecodeSlot":
+        """Capture the three graphs on ``stream``; returns the slot."""
+        bodies = (self._encode_body, self._decoder_body, self._update_body)
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            for body in bodies:
+                body()
+        pool = torch.cuda.graph_pool_handle()
+        counter = attention.launches
+        for body in bodies:
+            g = torch.cuda.CUDAGraph()
+            before = counter.thread_count
+            with torch.cuda.graph(g, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                body()
+            n = counter.thread_count - before
+            counter.add(-n)                 # captured, not launched
+            self._graphs.append(g)
+            self._launches.append(n)
+        torch.cuda.current_stream().wait_stream(stream)
+        return self
+
+    def given_back(self) -> None:
+        """Mark the slot free once the caller's stream has queued what
+        reads its buffers."""
+        if self.enc_input.is_cuda:
+            self._released = torch.cuda.Event()
+            self._released.record()
+
+    def taken(self) -> None:
+        """The new caller's stream waits for the last caller's reads."""
+        if self._released is not None:
+            torch.cuda.current_stream().wait_event(self._released)
+
+    def _replay(self, i: int) -> None:
+        self._graphs[i].replay()
+        if self._launches[i]:
+            attention.launches.add(self._launches[i])
+
+    def encode(self, enc_input: torch.Tensor) -> None:
+        """The call's input copied in, the encode graph replayed."""
+        self.enc_input.copy_(enc_input)
+        self._replay(0)
+
+    def decode(self, dec_input: torch.Tensor) -> List[torch.Tensor]:
+        """One round's decoder (:meth:`Transformer.decode_cached` on a
+        slot): the decoder graph replayed on ``dec_input`` (copied in
+        unless it is the slot's own); returns the static logits."""
+        if dec_input is not self.dec_input:
+            self.dec_input.copy_(dec_input)
+        self._replay(1)
+        return self.logits
+
+    def update(self) -> None:
+        """The round's update graph replayed."""
+        self._replay(2)
+
+
+class DecodeGraphs:
+    """The serving pipeline's captured decodes: slots kept in free lists
+    by key, and the counters of what the decode did.
+
+    A key is what a captured graph holds fixed: the model, the batch and
+    encoder length of the input, its dtype and device, the decode length,
+    each attention site's route, the compute dtype and the round's
+    constants. A call checks a slot out for its whole decode (:meth:`slot`),
+    so concurrent callers hold different slots; where the key has no free
+    slot, a new one is captured (``captures``). The weights are read where
+    they live: copying new weights into the parameters (``load_state_dict``)
+    reaches the graphs, replacing the parameters does not.
+
+    ``captures`` counts slots captured, ``replays`` rounds replayed and
+    ``eager_rounds`` rounds run eagerly by a call that was handed these
+    graphs and did not engage them.
+    """
+
+    def __init__(self, captures: LaunchCounter, replays: LaunchCounter,
+                 eager_rounds: LaunchCounter):
+        self.captures, self.replays = captures, replays
+        self.eager_rounds = eager_rounds
+        self._free: Dict[tuple, List[DecodeSlot]] = {}
+        self._lock = threading.Lock()
+        self._capture_lock = threading.Lock()
+        self._stream: Optional[torch.cuda.Stream] = None
+
+    @staticmethod
+    def engages(model: Transformer, enc_input: torch.Tensor) -> bool:
+        """Graphs serve a CUDA input to a model in eval mode under
+        ``torch.inference_mode`` (the pipeline's decode), whose weights
+        stay put; anything else (the CPU, training, gradients) decodes
+        eagerly."""
+        return bool(enc_input.is_cuda and not model.training
+                    and torch.is_inference_mode_enabled())
+
+    @staticmethod
+    def key(model: Transformer, enc_input: torch.Tensor, dec_len: int,
+            *update_args) -> tuple:
+        routes = tuple(sorted({m.attn_impl for m in model.modules()
+                               if isinstance(m, MultiheadAttn)}))
+        return (id(model), tuple(enc_input.shape), enc_input.dtype,
+                str(enc_input.device), dec_len, routes,
+                model.encoder.embed.compute_dtype) + tuple(update_args)
+
+    def capture_stream(self) -> torch.cuda.Stream:
+        """The stream every capture runs on (made at the first)."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream()
+        return self._stream
+
+    def checkout(self, key: tuple,
+                 make: Callable[[], DecodeSlot]) -> DecodeSlot:
+        """A free slot of ``key``, or a new one from ``make()`` (captures
+        run one at a time)."""
+        with self._lock:
+            free = self._free.get(key)
+            slot = free.pop() if free else None
+        if slot is not None:
+            slot.taken()
+            return slot
+        with self._capture_lock:
+            slot = make()
+        self.captures.add()
+        return slot
+
+    def release(self, slot: DecodeSlot) -> None:
+        """Give ``slot`` back, once the caller's stream has queued what
+        reads it."""
+        slot.given_back()
+        with self._lock:
+            self._free.setdefault(slot.key, []).append(slot)
+
+    def slots(self) -> int:
+        """Free slots held (every slot, when no call is running)."""
+        with self._lock:
+            return sum(len(v) for v in self._free.values())
+
+
+@torch.no_grad()
+def mask_predict_graphed(model: Transformer, graphs: DecodeGraphs,
+                         enc_input: torch.Tensor, dec_len: int,
+                         max_rounds: int = 8, topk: int = 3,
+                         remask_threshold: float = 0.9,
+                         early_stop_threshold: float = 0.99):
+    """:func:`mask_predict` as replays of a slot's graphs: the encode graph
+    once, then each round the decoder graph through
+    :meth:`Transformer.decode_cached` (so a wrapper of it sees every
+    round) and the update graph, and the host's read of whether every
+    window is done, which ends the loop at the eager path's round. The
+    spans are the eager path's. The codes and probabilities are copied out
+    before the slot goes back."""
+    args = (topk, remask_threshold, early_stop_threshold)
+    key = graphs.key(model, enc_input, dec_len, *args)
+    with span("ocr.decode.encode"):
+        slot = graphs.checkout(key, lambda: DecodeSlot(
+            model, key, enc_input, dec_len, *args).capture(
+                graphs.capture_stream()))
+        slot.encode(enc_input)
+    try:
+        for _ in range(max_rounds):
+            with span("ocr.decode.round"):
+                model.decode_cached(slot.dec_input, slot, slot.key_mask)
+                slot.update()
+                graphs.replays.add()
+                with span("ocr.wait.round"):
+                    stop = bool(slot.all_done)
+            if stop:
+                break
+        return slot.code_out.clone(), slot.p_out.clone()
+    finally:
+        graphs.release(slot)

@@ -39,16 +39,25 @@ build_info: Dict[str, object] = {}
 
 class LaunchCounter:
     """Thread-safe count of a kernel's launches, or of what a path did (the
-    pipeline may run pages on two threads)."""
+    pipeline may run pages on two threads), with each thread's own share
+    (:attr:`thread_count`)."""
 
     def __init__(self, name: str):
         self.name = name
         self._n = 0
         self._lock = threading.Lock()
+        self._local = threading.local()
 
     def add(self, n: int = 1) -> None:
         with self._lock:
             self._n += n
+        self._local.n = getattr(self._local, "n", 0) + n
+
+    @property
+    def thread_count(self) -> int:
+        """What the calling thread has added since the counter was made
+        (:meth:`reset` leaves it)."""
+        return getattr(self._local, "n", 0)
 
     def reset(self) -> None:
         with self._lock:
