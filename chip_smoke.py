@@ -43,7 +43,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    weights from torch.Generator(0) drawn like flax's defaults, on a
    synthetic 2048x1448 page (12 tiles in chunks of 8 and 4). The default
    path's detections must equal the host-merge, host-feature path's bit
-   for bit on the page. A detections hook then swaps in a realistic
+   for bit on the page. The live detector replays its captured CUDA graphs
+   (``DetectorGraphs``): a page replays one a chunk and runs none eagerly;
+   prints the slots captured and the bytes of their memory pools. A
+   detections hook then swaps in a realistic
    synthetic box set after the full detector pass (its f16 features on the
    card for the default path, the same values as an f32 array for the host
    path), so decode runs at a realistic load. One pipeline runs both
@@ -1040,12 +1043,15 @@ def phase_main_path():
     del heat, fmap, tiles
 
     # the default path's detections against the host path's, bit for bit,
-    # on the page itself (no hook)
+    # on the page itself (no hook); the first captures the detector's graphs
     pipe.detections_hook = None
     dets = {}
+    pools = graph_pools()
     for path in ("default", "host"):
         pipe.cfg = cfg if path == "default" else host_cfg
         dets[path] = pipe.run_detector(img)
+    slot_bytes = sorted(v for k, v in graph_pools().items()
+                        if k not in pools)
     a, b = dets["default"], dets["host"]
     if len(a.locations) and not isinstance(a.features, LazyFeatures):
         raise AssertionError("the default path read the features back")
@@ -1066,6 +1072,23 @@ def phase_main_path():
     use("host")
     ocr_pages(pipe, [img], workers=1)
     torch.cuda.synchronize()
+
+    # the live page replays the detector's graphs: one replay a chunk
+    use("default")
+    counters = (pipe.detector_graph_replays, pipe.detector_eager_calls)
+    for c in counters:
+        c.reset()
+    pipe(img)
+    torch.cuda.synchronize()
+    replays, eager = (c.count for c in counters)
+    log(f"detector graphs: a page replayed {replays} chunks, {eager} "
+        f"eager; {pipe.detector_graph_captures.count} slots captured "
+        f"(chunk sizes {pipe._chunk_sizes(n_tiles)}), their memory pools "
+        f"{slot_bytes} bytes")
+    if replays != n_chunks or eager:
+        raise AssertionError(f"the live page replayed {replays} detector "
+                             f"graphs and ran {eager} chunks eagerly, not "
+                             f"{n_chunks} and 0")
 
     def window(path, impl, pages):
         use(path)
@@ -1175,6 +1198,19 @@ def phase_main_path():
     log(f"decode_windows in turns (ms): {json.dumps(turns)}")
     results["bucketed"] = bucketed_page(pipe, cfg)
     return results
+
+
+def graph_pools() -> dict:
+    """Bytes the caching allocator holds in each private memory pool of
+    captured CUDA graphs, {pool id: bytes}."""
+    import torch
+
+    out = {}
+    for seg in torch.cuda.memory_snapshot():
+        pid = tuple(seg.get("segment_pool_id", (0, 0)))
+        if pid != (0, 0):
+            out[pid] = out.get(pid, 0) + seg["total_size"]
+    return out
 
 
 def bucket_stream(feats, fdim: int, device="cuda"):

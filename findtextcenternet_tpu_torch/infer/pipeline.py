@@ -52,7 +52,8 @@ import torch.nn.functional as F
 from ..config import Config
 from ..const import FEATURE_DIM, MAX_ENCODER_LEN, MODULO_LIST, SCALE
 from ..device import resolve_device
-from ..models.detector import CenterNetDetection, SimpleDecoder
+from ..models.detector import (CenterNetDetection, DetectorGraphs,
+                               SimpleDecoder)
 from ..models.init import init_flax_defaults_
 from ..models.transformer import (DecodeGraphs, Transformer,
                                   TransformerDims, make_key_mask,
@@ -277,6 +278,14 @@ def _dequantize(a: np.ndarray) -> np.ndarray:
     return a.astype(np.float32) / 255.0 if a.dtype == np.uint8 else a
 
 
+def _counted_calls(fn: Callable, counter: LaunchCounter) -> Callable:
+    """``fn`` with each call counted in ``counter``."""
+    def call(*args, **kwargs):
+        counter.add()
+        return fn(*args, **kwargs)
+    return call
+
+
 class OCRPipeline:
     def __init__(self, config: Config = Config(),
                  detector_state: Optional[dict] = None,
@@ -320,6 +329,15 @@ class OCRPipeline:
         counts the slots captured, ``decode_graph_replays`` the rounds
         replayed and ``decode_eager_rounds`` the rounds run eagerly (by the
         live model or an artifact's decode).
+
+        The live detector's forward on a CUDA device replays a captured
+        CUDA graph as well (``models.detector.DetectorGraphs``: one graph
+        for each chunk size and concurrent caller, captured at its first
+        use); the CPU and the ``detector_apply`` hooks run eagerly.
+        ``detector_graph_captures`` counts the slots captured,
+        ``detector_graph_replays`` the chunks replayed and
+        ``detector_eager_calls`` the chunks run eagerly (by the live
+        model or a hook).
         """
         ic = config.inference
         self.cfg = config
@@ -364,7 +382,6 @@ class OCRPipeline:
             replicate(self.transformer, mesh)
 
         mp = config.mask_predict
-        self._apply_fn = detector_apply or self.detector
         self._live_decode = decode_fn is None
         # the CRT auxiliary classifier of a ``model.pt`` that has one
         # (:meth:`from_torch_checkpoints`), for per-box decoding in tools
@@ -385,6 +402,17 @@ class OCRPipeline:
             topk=mp.topk, remask_threshold=mp.remask_threshold,
             early_stop_threshold=mp.early_stop_threshold,
             graphs=self._decode_graphs)
+        self.detector_graph_captures = LaunchCounter(
+            "detector_graph_captures")
+        self.detector_graph_replays = LaunchCounter("detector_graph_replays")
+        self.detector_eager_calls = LaunchCounter("detector_eager_calls")
+        if detector_apply is None:
+            self._apply_fn = DetectorGraphs(
+                self.detector, self.detector_graph_captures,
+                self.detector_graph_replays, self.detector_eager_calls)
+        else:
+            self._apply_fn = _counted_calls(detector_apply,
+                                            self.detector_eager_calls)
 
     @classmethod
     def from_torch_checkpoints(cls, model_pt: str, model3_pt: str,

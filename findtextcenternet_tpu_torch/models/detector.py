@@ -16,6 +16,10 @@ as the backbone's blocks.
 same function as the nine Leafmaps; :func:`fuse_head_variables` /
 :func:`unfuse_head_variables` move a state dict between the two layouts.
 
+On a card the serving pipeline's live forward replays a captured CUDA
+graph (:class:`DetectorGraphs`: one slot a chunk size and concurrent
+caller, the pool of :mod:`.graphs` that the live decode shares).
+
 Under a mesh: :func:`shard_fmask` takes each data rank's share of the
 global batch's top-k selection, and a SimpleDecoder split over ``model``
 (``parallel.mesh.shard_params``, the JAX package's TP rules) holds a column
@@ -30,10 +34,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..const import FEATURE_DIM, MODULO_LIST
+from ..ops.kernels import LaunchCounter
 from ..ops.resize import upsample2x
 from ..parallel import collectives as coll
 from .batchnorm import BatchNorm1d, BatchNorm2d, SyncStats, recomputing, remat
 from .efficientnet import TAP_CHANNELS, EfficientNetV2
+from .graphs import GraphPool, GraphSlot, capture_graphs
 from .init import fused_kernel_init_
 
 # (module name, JAX head name, output channels), in heatmap channel order
@@ -585,3 +591,92 @@ class TextDetectorModel(nn.Module):
         heatmap, features = self.detector(images)
         sel = features.reshape(-1, features.shape[-1])[fmask_idx]
         return heatmap, self.decoder(sel)
+
+
+# ---------------------------------------------------------------------------
+# The forward as a captured CUDA graph (the serving pipeline's live model)
+# ---------------------------------------------------------------------------
+
+class DetectorSlot(GraphSlot):
+    """One key's CUDA graph of :meth:`CenterNetDetection.forward` (the
+    permute and scale, the cast to the compute dtype, the backbone, the
+    heads and the two output permutes) from the static ``images`` into the
+    static ``heatmap`` and ``features``, captured by
+    :func:`.graphs.capture_graphs`. A replay runs on the caller's current
+    stream."""
+
+    def __init__(self, model: CenterNetDetection, key: tuple,
+                 images: torch.Tensor):
+        super().__init__(key, images.is_cuda)
+        self.model = model
+        self.images = images.clone()
+        self._graph = None
+
+    def _body(self):
+        self.heatmap, self.features = self.model(self.images)
+
+    def capture(self, stream: torch.cuda.Stream) -> "DetectorSlot":
+        """Capture the graph on ``stream``; returns the slot."""
+        (self._graph,), _ = capture_graphs((self._body,), stream)
+        return self
+
+    def run(self, images: torch.Tensor):
+        """``images`` copied in, the graph replayed, and copies of the
+        static outputs (which the next holder's replay overwrites)."""
+        self.images.copy_(images)
+        self._graph.replay()
+        return self.heatmap.clone(), self.features.clone()
+
+
+class DetectorGraphs(GraphPool):
+    """The serving pipeline's live detector forward: a callable that, where
+    :meth:`engages` says so, replays a :class:`DetectorSlot` of this
+    :class:`.graphs.GraphPool` (the same kernels as the module, so the
+    same outputs), and otherwise runs the module.
+
+    A key is what a captured graph holds fixed: the model, the input's
+    shape, dtype and device, and the compute dtype. A call checks a slot
+    out, replays it and gives it back after its outputs are copied out, so
+    concurrent callers hold different slots.
+
+    ``captures`` counts slots captured, ``replays`` calls replayed and
+    ``eager_calls`` calls that ran the module.
+    """
+
+    def __init__(self, model: CenterNetDetection, captures: LaunchCounter,
+                 replays: LaunchCounter, eager_calls: LaunchCounter):
+        super().__init__(captures)
+        self.model = model
+        self.replays, self.eager_calls = replays, eager_calls
+
+    @staticmethod
+    def engages(model: CenterNetDetection, images: torch.Tensor) -> bool:
+        """Graphs serve a CUDA input to a model in eval mode under
+        ``torch.inference_mode`` (the pipeline's detection), whose weights
+        stay put; anything else (the CPU, training, ``remat``, gradients)
+        runs the module."""
+        return bool(images.is_cuda and not model.training
+                    and not model.remat
+                    and torch.is_inference_mode_enabled())
+
+    @staticmethod
+    def key(model: CenterNetDetection, images: torch.Tensor) -> tuple:
+        return (id(model), tuple(images.shape), images.dtype,
+                str(images.device),
+                model.backbone.features[0][0].weight.dtype)
+
+    def __call__(self, images: torch.Tensor):
+        """NHWC ``images`` -> ``(heatmap, features)``, as the module."""
+        model = self.model
+        if not self.engages(model, images):
+            self.eager_calls.add()
+            return model(images)
+        key = self.key(model, images)
+        slot = self.checkout(key, lambda: DetectorSlot(
+            model, key, images).capture(self.capture_stream()))
+        try:
+            out = slot.run(images)
+            self.replays.add()
+            return out
+        finally:
+            self.release(slot)

@@ -37,8 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import threading
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,6 +58,7 @@ from ..ops import attention
 from ..ops.kernels import LaunchCounter
 from ..parallel import collectives as coll
 from ..utils.profiling import span
+from .graphs import GraphPool, GraphSlot, capture_graphs
 
 LN_EPS = 1e-6
 
@@ -644,7 +644,7 @@ def mask_predict_fns(encode_fn, decode_probs_fn, enc_input: torch.Tensor,
 # Mask-predict as captured CUDA graphs (the serving pipeline's live model)
 # ---------------------------------------------------------------------------
 
-class DecodeSlot:
+class DecodeSlot(GraphSlot):
     """One key's three CUDA graphs and the static buffers they share.
 
     * the encode graph: the key mask, the encoder, the cross K/V of every
@@ -656,11 +656,9 @@ class DecodeSlot:
       written back into the state (``dec_input``, ``code_out``, ``p_out``,
       ``done``) and ``all_done``.
 
-    The three bodies are the eager path's functions, captured on
-    ``stream`` into one memory pool after one eager run of each there (the
-    warm-up a capture needs), in ``"thread_local"`` capture mode, so that
-    other threads keep launching meanwhile. A replay runs on the caller's
-    current stream. The attention kernel's launch counter
+    The three bodies are the eager path's functions, captured by
+    :func:`.graphs.capture_graphs`. A replay runs on the caller's current
+    stream. The attention kernel's launch counter
     (``ops.attention.launches``) counts each replay's launches, and not
     the capture's.
     """
@@ -668,12 +666,10 @@ class DecodeSlot:
     def __init__(self, model: Transformer, key: tuple,
                  enc_input: torch.Tensor, dec_len: int, topk: int,
                  remask_threshold: float, early_stop_threshold: float):
-        self.model, self.key, self.dec_len = model, key, dec_len
+        super().__init__(key, enc_input.is_cuda)
+        self.model, self.dec_len = model, dec_len
         self.update_args = (topk, remask_threshold, early_stop_threshold)
         self.enc_input = enc_input.clone()
-        # recorded where the slot is given back: the next caller's stream
-        # waits on it, so no replay overwrites a result still being read
-        self._released = None
         self._graphs: List[torch.cuda.CUDAGraph] = []
         self._launches: List[int] = []
 
@@ -699,37 +695,10 @@ class DecodeSlot:
 
     def capture(self, stream: torch.cuda.Stream) -> "DecodeSlot":
         """Capture the three graphs on ``stream``; returns the slot."""
-        bodies = (self._encode_body, self._decoder_body, self._update_body)
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            for body in bodies:
-                body()
-        pool = torch.cuda.graph_pool_handle()
-        counter = attention.launches
-        for body in bodies:
-            g = torch.cuda.CUDAGraph()
-            before = counter.thread_count
-            with torch.cuda.graph(g, pool=pool, stream=stream,
-                                  capture_error_mode="thread_local"):
-                body()
-            n = counter.thread_count - before
-            counter.add(-n)                 # captured, not launched
-            self._graphs.append(g)
-            self._launches.append(n)
-        torch.cuda.current_stream().wait_stream(stream)
+        self._graphs, self._launches = capture_graphs(
+            (self._encode_body, self._decoder_body, self._update_body),
+            stream, attention.launches)
         return self
-
-    def given_back(self) -> None:
-        """Mark the slot free once the caller's stream has queued what
-        reads its buffers."""
-        if self.enc_input.is_cuda:
-            self._released = torch.cuda.Event()
-            self._released.record()
-
-    def taken(self) -> None:
-        """The new caller's stream waits for the last caller's reads."""
-        if self._released is not None:
-            torch.cuda.current_stream().wait_event(self._released)
 
     def _replay(self, i: int) -> None:
         self._graphs[i].replay()
@@ -755,18 +724,15 @@ class DecodeSlot:
         self._replay(2)
 
 
-class DecodeGraphs:
-    """The serving pipeline's captured decodes: slots kept in free lists
-    by key, and the counters of what the decode did.
+class DecodeGraphs(GraphPool):
+    """The serving pipeline's captured decodes: a :class:`.graphs.GraphPool`
+    of :class:`DecodeSlot` s, and the counters of what the decode did.
 
     A key is what a captured graph holds fixed: the model, the batch and
     encoder length of the input, its dtype and device, the decode length,
     each attention site's route, the compute dtype and the round's
-    constants. A call checks a slot out for its whole decode (:meth:`slot`),
-    so concurrent callers hold different slots; where the key has no free
-    slot, a new one is captured (``captures``). The weights are read where
-    they live: copying new weights into the parameters (``load_state_dict``)
-    reaches the graphs, replacing the parameters does not.
+    constants. A call checks a slot out for its whole decode
+    (:meth:`checkout`).
 
     ``captures`` counts slots captured, ``replays`` rounds replayed and
     ``eager_rounds`` rounds run eagerly by a call that was handed these
@@ -775,12 +741,8 @@ class DecodeGraphs:
 
     def __init__(self, captures: LaunchCounter, replays: LaunchCounter,
                  eager_rounds: LaunchCounter):
-        self.captures, self.replays = captures, replays
-        self.eager_rounds = eager_rounds
-        self._free: Dict[tuple, List[DecodeSlot]] = {}
-        self._lock = threading.Lock()
-        self._capture_lock = threading.Lock()
-        self._stream: Optional[torch.cuda.Stream] = None
+        super().__init__(captures)
+        self.replays, self.eager_rounds = replays, eager_rounds
 
     @staticmethod
     def engages(model: Transformer, enc_input: torch.Tensor) -> bool:
@@ -799,39 +761,6 @@ class DecodeGraphs:
         return (id(model), tuple(enc_input.shape), enc_input.dtype,
                 str(enc_input.device), dec_len, routes,
                 model.encoder.embed.compute_dtype) + tuple(update_args)
-
-    def capture_stream(self) -> torch.cuda.Stream:
-        """The stream every capture runs on (made at the first)."""
-        if self._stream is None:
-            self._stream = torch.cuda.Stream()
-        return self._stream
-
-    def checkout(self, key: tuple,
-                 make: Callable[[], DecodeSlot]) -> DecodeSlot:
-        """A free slot of ``key``, or a new one from ``make()`` (captures
-        run one at a time)."""
-        with self._lock:
-            free = self._free.get(key)
-            slot = free.pop() if free else None
-        if slot is not None:
-            slot.taken()
-            return slot
-        with self._capture_lock:
-            slot = make()
-        self.captures.add()
-        return slot
-
-    def release(self, slot: DecodeSlot) -> None:
-        """Give ``slot`` back, once the caller's stream has queued what
-        reads it."""
-        slot.given_back()
-        with self._lock:
-            self._free.setdefault(slot.key, []).append(slot)
-
-    def slots(self) -> int:
-        """Free slots held (every slot, when no call is running)."""
-        with self._lock:
-            return sum(len(v) for v in self._free.values())
 
 
 @torch.no_grad()
