@@ -36,7 +36,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    attention row gives what its inputs imply and no run measures: the
    unmasked keys, the 64-key tiles the mask lets the kernels skip, the f32
    CUDA-core bound, and the time of the FMA-loop kernels they replaced
-   (``ms_before``, quoted from PERF.md).
+   (``ms_before``, quoted from PERF.md). The f32 dense-product kernel
+   (``csrc/gemm_tf32x3.cu``, split tf32 ``wgmma``) at the train step's and
+   the decode's shapes, forward, input gradient and weight gradient, against
+   an f64 product beside cuBLAS f32 and one TF32 pass (the error over the
+   operand vectors' norms), timed beside its plain version (``F.linear``)
+   and ``torch.matmul`` in f32 (``library_ms``); its bound is the larger of
+   the bytes over 3.35 TB/s and 3 x the flops over 495 TFLOP/s.
 4. Serving path: OCRPipeline under the default config (the device page
    merge and device-resident glyph features) with the xl detector (bf16)
    and the full 768-d 12-head 10+10-block 400-token Transformer, random
@@ -57,8 +63,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    gather at least once a page, the attention kernel in every fused window
    and never in an xla one. Then the host path and the default path run
    windows of 3 pages in turns default, host, host, default, and their
-   outputs must be equal. The heatmap must be finite and the output well
-   formed. Prints ms/page and tiles/s per window (and their median and
+   outputs must be equal. One served page's dense-product launches are
+   printed (forward only, through the decode's graphs; an eager decode of
+   the same windows launches one a ``Dense`` call). The heatmap must be
+   finite and the output well formed. Prints ms/page and tiles/s per window (and their median and
    spread per route), peak device memory, and the bytes read back from the
    device a page on both paths (the default path's under half the host
    path's, the fused page's attention kernel launched), and the decode
@@ -84,6 +92,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    sequences/s, tokens/s, the loss per step (finite, and the params must
    move), 30 forward and 30 backward attention launches per step, peak
    device memory; 2 profiled steps for the device busy time and idle share.
+   One step's dense-product launches: a forward launch a ``Dense`` call,
+   an input-gradient launch for each but the encoder's input layer, a
+   weight-gradient launch for each.
    The step's work (matmul and unmasked attention flops) and its bound.
    Reference check: the loss and gradients of one step through the
    kernels against the einsum route from the same weights and batch
@@ -837,6 +848,7 @@ def phase_kernels():
         f"{masked['library_ms'] / full['library_ms']:.3f} (library); live "
         f"key tiles {live:.3f} of the unmasked row's")
 
+    rows.update(gemm_rows())
     train_rows, train_info = training_kernel_rows(rng)
     rows.update(train_rows)
     info.update(train_info)
@@ -850,6 +862,114 @@ def phase_kernels():
         log(f"{key}, reckoned from its inputs (not measured): "
             f"{json.dumps(i)}")
     return rows
+
+
+# (rows, outputs, inputs) of a Dense at the train step's 32 x 400 rows and
+# the served decode's 4 x 400: q/k/v/out, SwiGLU's w1/wg and w2, an output
+# layer, the encoder's input layer; the decode's largest output layer
+GEMM_SHAPES = ((12800, 768, 768), (12800, 1536, 768), (12800, 768, 1536),
+               (12800, 1091, 768), (12800, 768, 106), (1600, 1097, 768),
+               (1600, 768, 768), (37, 768, 768))
+
+
+def gemm_rows() -> dict:
+    """The dense-product kernel's forward, input-gradient and weight-gradient
+    products at ``GEMM_SHAPES`` against an f64 product, beside cuBLAS f32
+    and one TF32 pass (error: the largest |C - C64| over the product of the
+    two operand vectors' norms), timed beside the plain version
+    (``F.linear``) and ``torch.matmul``; returns one row a product."""
+    import torch
+    import torch.nn.functional as F
+
+    from findtextcenternet_tpu_torch.ops import gemm
+    from findtextcenternet_tpu_torch.tools.timing import time_ms
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = {}
+
+    def err(c, ref, sa, sb):
+        return float(((c.double() - ref).abs()
+                      / (sa[:, None] * sb[None, :])).max())
+
+    for m, n, k in GEMM_SHAPES:
+        x = torch.randn(m, k, device=dev, generator=g)
+        w = torch.randn(n, k, device=dev, generator=g)
+        gy = torch.randn(m, n, device=dev, generator=g)
+        b = torch.randn(n, device=dev, generator=g)
+        xd, wd, gd = x.double(), w.double(), gy.double()
+        for kind, ker, plain, lib, ref, sa, sb, shape in (
+                ("forward", lambda: gemm.linear_fwd(x, w, b),
+                 lambda: F.linear(x, w, b),
+                 lambda: torch.matmul(x, w.t()) + b,
+                 lambda: xd @ wd.t() + b.double(), xd.norm(dim=1),
+                 wd.norm(dim=1), (m, n, k)),
+                ("input_grad", lambda: gemm.linear_dgrad(gy, w),
+                 lambda: F.linear(gy, w.t()), lambda: torch.matmul(gy, w),
+                 lambda: gd @ wd, gd.norm(dim=1), wd.norm(dim=0),
+                 (m, k, n)),
+                ("weight_grad", lambda: gemm.linear_wgrad(gy, x),
+                 lambda: F.linear(gy.t(), x.t()),
+                 lambda: torch.matmul(gy.t(), x), lambda: gd.t() @ xd,
+                 gd.norm(dim=0), xd.norm(dim=0), (n, k, m))):
+            r64 = ref()
+            e = err(ker(), r64, sa, sb)
+            e32 = err(lib(), r64, sa, sb)
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                e_tf32 = err(lib(), r64, sa, sb)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            del r64
+            if not (e <= 4 * e32 and 100 * e <= e_tf32):
+                raise AssertionError(f"gemm {kind} {shape}: error {e} "
+                                     f"against cuBLAS f32 {e32}, TF32 "
+                                     f"{e_tf32}")
+            mm, nn, kk = shape
+            flops = 2 * mm * nn * kk
+            nbytes = 4 * (mm * kk + nn * kk + mm * nn)
+            rows[f"gemm_{kind}_{mm}x{nn}x{kk}"] = {
+                "name": f"gemm_tf32x3_{kind}", "route": "cuda",
+                "source": "findtextcenternet_tpu_torch/csrc/gemm_tf32x3.cu",
+                "replaces": "none (XLA's dot in the JAX package)",
+                "err": e, "err_cublas_f32": e32, "err_tf32": e_tf32,
+                "splits": gemm.plan_splits(mm, nn, kk, gemm._sms(0)),
+                "ms": device_ms(ker, 20, "gemm_tf32x3"),
+                "plain_ms": device_ms(plain, 20),
+                "library_ms": device_ms(lib, 20),
+                "wall_ms": time_ms(ker, "cuda", 20, warmup=3),
+                **attention_bounds(flops, nbytes, PEAK_SPLIT_TF32_FLOPS),
+                "shape": [mm, nn, kk], "dtype": "float32",
+                "path": "serving" if mm == 1600 else "training"}
+        del x, w, gy, b, xd, wd, gd
+    for key, r in rows.items():
+        log(f"{key}: error {r['err']:.3g} (cuBLAS f32 {r['err_cublas_f32']:.3g}"
+            f", TF32 {r['err_tf32']:.3g}), K slices {r['splits']}, "
+            f"{2 * np.prod(r['shape']) / r['ms'] / 1e9:.1f} TFLOP/s")
+    return rows
+
+
+def dense_launches(model, fn) -> dict:
+    """``fn()``'s Dense calls (forward hooks), those whose input takes a
+    gradient, and the dense-product kernel's launches: forward, input
+    gradient, weight gradient."""
+    from findtextcenternet_tpu_torch.models.transformer import Dense
+    from findtextcenternet_tpu_torch.ops import gemm
+
+    calls = []       # a Dense call: whether its input takes a gradient
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out: calls.append(args[0].requires_grad))
+        for m in model.modules() if isinstance(m, Dense)]
+    counters = (gemm.launches, gemm.dgrad_launches, gemm.wgrad_launches)
+    before = [c.count for c in counters]
+    try:
+        fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    fwd, dgrad, wgrad = (c.count - n for c, n in zip(counters, before))
+    return {"dense_calls": len(calls), "input_grads": sum(calls),
+            "gemm_fwd": fwd, "gemm_dgrad": dgrad, "gemm_wgrad": wgrad}
 
 
 def training_kernel_rows(rng):
@@ -980,6 +1100,7 @@ def phase_main_path():
     from findtextcenternet_tpu_torch.config import Config
     from findtextcenternet_tpu_torch.infer.pipeline import (
         DetectedPage, LazyFeatures, OCRPipeline, ocr_pages)
+    from findtextcenternet_tpu_torch.models.transformer import mask_predict
     from findtextcenternet_tpu_torch.ops import attention, nms
 
     t0 = time.perf_counter()
@@ -1089,6 +1210,26 @@ def phase_main_path():
         raise AssertionError(f"the live page replayed {replays} detector "
                              f"graphs and ran {eager} chunks eagerly, not "
                              f"{n_chunks} and 0")
+
+    # the dense products of a served page (the decode's graphs replay their
+    # launches), and of an eager decode of its windows: one a Dense call
+    served = dense_launches(pipe.transformer, lambda: (
+        pipe(img), torch.cuda.synchronize()))
+    batch = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (len(windows), cfg.transformer.max_enc_seq_len,
+         pipe.transformer.dims.enc_input_dim)).astype(np.float32)).to("cuda")
+    with torch.inference_mode():
+        eager_dec = dense_launches(pipe.transformer, lambda: (
+            mask_predict(pipe.transformer, batch), torch.cuda.synchronize()))
+    log(f"dense products of a served page: {json.dumps(served)} (graph "
+        f"replays run no hooks); an eager decode of {len(windows)} random "
+        f"windows: {json.dumps(eager_dec)}")
+    if (served["gemm_fwd"] <= 0 or served["gemm_dgrad"]
+            or served["gemm_wgrad"] or eager_dec["gemm_fwd"]
+            != eager_dec["dense_calls"] or eager_dec["gemm_dgrad"]
+            or eager_dec["gemm_wgrad"]):
+        raise AssertionError(f"dense products: page {served}, eager decode "
+                             f"{eager_dec}")
 
     def window(path, impl, pages):
         use(path)
@@ -1502,15 +1643,14 @@ def step_work(model, batches) -> dict:
     out = dict(matmul_flops=3 * sum(counted),
                attention_flops=14 * d.embed_dim * pairs,
                encoder_keys_unmasked_share=enc_keys / (b * s))
-    # the matmuls run in f32 on the CUDA cores (TF32 off, as the reference
-    # needs); the attention kernels in the split-tf32 form
+    # the matmuls and the attention run in the split-tf32 form on the tensor
+    # cores (csrc/gemm_tf32x3.cu, the attention kernels); beside it, the
+    # bound with the matmuls on the CUDA cores, as cuBLAS ran them
     out["bound_ms"] = (out["matmul_flops"] + out["attention_flops"]) \
-        / PEAK_F32_FLOPS * 1e3
-    out["attention_bound_ms_split_tf32"] = \
-        out["attention_flops"] / PEAK_SPLIT_TF32_FLOPS * 1e3
-    out["bound_ms_split_tf32_attention"] = \
-        out["matmul_flops"] / PEAK_F32_FLOPS * 1e3 \
-        + out["attention_bound_ms_split_tf32"]
+        / PEAK_SPLIT_TF32_FLOPS * 1e3
+    out["bound_ms_f32_cuda_core_matmuls"] = \
+        (out["matmul_flops"] / PEAK_F32_FLOPS
+         + out["attention_flops"] / PEAK_SPLIT_TF32_FLOPS) * 1e3
     return out
 
 
@@ -1607,6 +1747,13 @@ def phase_training():
         raise AssertionError(f"training loss not finite: {losses}")
     if not all(v > 0 for v in moved.values()):
         raise AssertionError(f"training did not move the params: {moved}")
+    dense = dense_launches(model, lambda: (
+        step(batches[TRAIN_WARMUP]), torch.cuda.synchronize()))
+    log(f"training: one step's dense products {json.dumps(dense)}")
+    n = dense["dense_calls"]
+    if (dense["gemm_fwd"], dense["gemm_dgrad"], dense["gemm_wgrad"]) != \
+            (n, dense["input_grads"], n) or dense["input_grads"] != n - 1:
+        raise AssertionError(f"a train step's dense products: {dense}")
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:

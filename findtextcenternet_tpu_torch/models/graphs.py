@@ -46,14 +46,14 @@ class GraphSlot:
 
 def capture_graphs(bodies: Sequence[Callable[[], None]],
                    stream: torch.cuda.Stream,
-                   counter: Optional[LaunchCounter] = None
-                   ) -> Tuple[List[torch.cuda.CUDAGraph], List[int]]:
+                   counters: Sequence[LaunchCounter] = ()
+                   ) -> Tuple[List[torch.cuda.CUDAGraph], List[List[int]]]:
     """One CUDA graph of each body, captured on ``stream`` into one memory
     pool after one eager run of each there (the warm-up a capture needs),
     in ``"thread_local"`` capture mode, so that other threads keep
-    launching meanwhile. ``counter`` (a kernel's launch counter) keeps the
-    warm-up's launches and not the capture's, which are returned, one
-    count a graph, for the replays to add."""
+    launching meanwhile. ``counters`` (kernels' launch counters) keep the
+    warm-up's launches and not the capture's, which are returned, a count
+    a counter for each graph, for the replays to add."""
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
         for body in bodies:
@@ -62,15 +62,16 @@ def capture_graphs(bodies: Sequence[Callable[[], None]],
     graphs, launches = [], []
     for body in bodies:
         g = torch.cuda.CUDAGraph()
-        before = counter.thread_count if counter is not None else 0
+        before = [c.thread_count for c in counters]
         with torch.cuda.graph(g, pool=pool, stream=stream,
                               capture_error_mode="thread_local"):
             body()
-        n = counter.thread_count - before if counter is not None else 0
-        if n:
-            counter.add(-n)                 # captured, not launched
+        ns = [c.thread_count - b for c, b in zip(counters, before)]
+        for c, n in zip(counters, ns):
+            if n:
+                c.add(-n)                   # captured, not launched
         graphs.append(g)
-        launches.append(n)
+        launches.append(ns)
     torch.cuda.current_stream().wait_stream(stream)
     return graphs, launches
 

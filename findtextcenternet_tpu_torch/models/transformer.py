@@ -54,7 +54,7 @@ from ..const import (
     MAX_ENCODER_LEN,
     MODULO_LIST,
 )
-from ..ops import attention
+from ..ops import attention, gemm
 from ..ops.kernels import LaunchCounter
 from ..parallel import collectives as coll
 from ..utils.profiling import span
@@ -131,10 +131,12 @@ class PositionalEncoding(nn.Module):
 
 
 class Dense(nn.Linear):
-    """Linear layer computing in ``dtype`` (f32 parameters). Under tensor
-    parallelism (:meth:`split_`) ``"col"`` holds a slice of the outputs
-    (and the bias's) and ``"row"`` a slice of the inputs, its partial
-    outputs summed over the group before the whole bias is added."""
+    """Linear layer computing in ``dtype`` (f32 parameters); in f32 on a
+    card through the split-tf32 kernel of :mod:`..ops.gemm`, forward and
+    backward. Under tensor parallelism (:meth:`split_`) ``"col"`` holds a
+    slice of the outputs (and the bias's) and ``"row"`` a slice of the
+    inputs, its partial outputs summed over the group before the whole bias
+    is added."""
 
     def __init__(self, cin: int, cout: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
@@ -157,14 +159,20 @@ class Dense(nn.Linear):
 
     def forward(self, x):
         dt = self.compute_dtype
+        # f32 takes the split-tf32 kernel on a card (ops.gemm; F.linear on
+        # the CPU); bf16 and f16 are F.linear, on the tensor cores already
+        lin = gemm.linear if dt == torch.float32 else F.linear
+        x = x.to(dt)
+        if x.is_cuda:
+            x = x.contiguous()
         if self.tp_mode == "col":
             x = coll.copy_to_group(x, self.tp_group)
         elif self.tp_mode == "row":
-            y = coll.reduce_from_group(
-                F.linear(x.to(dt), self.weight.to(dt)), self.tp_group)
+            y = coll.reduce_from_group(lin(x, self.weight.to(dt)),
+                                       self.tp_group)
             return y if self.bias is None else y + self.bias.to(dt)
         b = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+        return lin(x, self.weight.to(dt), b)
 
 
 def layer_norm(mod: nn.LayerNorm, x):
@@ -658,10 +666,12 @@ class DecodeSlot(GraphSlot):
 
     The three bodies are the eager path's functions, captured by
     :func:`.graphs.capture_graphs`. A replay runs on the caller's current
-    stream. The attention kernel's launch counter
-    (``ops.attention.launches``) counts each replay's launches, and not
-    the capture's.
+    stream. The launch counters of the attention kernel and the dense
+    products (``ops.attention.launches``, ``ops.gemm.launches``) count each
+    replay's launches, and not the capture's.
     """
+
+    COUNTERS = (attention.launches, gemm.launches)
 
     def __init__(self, model: Transformer, key: tuple,
                  enc_input: torch.Tensor, dec_len: int, topk: int,
@@ -697,13 +707,14 @@ class DecodeSlot(GraphSlot):
         """Capture the three graphs on ``stream``; returns the slot."""
         self._graphs, self._launches = capture_graphs(
             (self._encode_body, self._decoder_body, self._update_body),
-            stream, attention.launches)
+            stream, self.COUNTERS)
         return self
 
     def _replay(self, i: int) -> None:
         self._graphs[i].replay()
-        if self._launches[i]:
-            attention.launches.add(self._launches[i])
+        for counter, n in zip(self.COUNTERS, self._launches[i]):
+            if n:
+                counter.add(n)
 
     def encode(self, enc_input: torch.Tensor) -> None:
         """The call's input copied in, the encode graph replayed."""

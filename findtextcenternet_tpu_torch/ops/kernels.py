@@ -130,6 +130,10 @@ def lib() -> ctypes.CDLL:
             so.ftcn_attention_fwd.restype = i
             so.ftcn_attention_bwd.argtypes = [p] * 11 + [i] * 5 + [f, p]
             so.ftcn_attention_bwd.restype = i
+            ln = ctypes.c_long
+            so.ftcn_gemm_tf32x3.argtypes = [p, i, ln, p, i, ln, p, p, ln, p,
+                                            p, i, i, i, i, i, p]
+            so.ftcn_gemm_tf32x3.restype = i
             _lib = so
     return _lib
 

@@ -136,7 +136,7 @@ def test_kernel_library_is_named_by_its_headers_too(monkeypatch, tmp_path):
     monkeypatch.setattr(kernels, "CSRC_DIR", str(csrc))
     monkeypatch.setattr(kernels, "nvcc_version", lambda: "nvcc V12.8")
     assert {os.path.basename(p) for p in kernels.csrc_files(".cu")} == {
-        "nms.cu", "attention.cu", "attention_bwd.cu"}
+        "nms.cu", "attention.cu", "attention_bwd.cu", "gemm_tf32x3.cu"}
     before = kernels.library_path()
     assert kernels.library_path() == before
     header = csrc / "attention_mma.cuh"
